@@ -1,0 +1,19 @@
+"""WARC streams, records and the FastWARC-style parser (gzip and
+uncompressed)."""
+from .errors import RecordReadError
+from .fastwarc import FastWARCIterator, read_record_at
+from .record import (HttpHeaderMap, WarcHeaderMap, WarcRecord,
+                     WarcRecordType)
+from .writer import WarcWriter, serialize_record
+
+__all__ = [
+    "FastWARCIterator",
+    "HttpHeaderMap",
+    "RecordReadError",
+    "WarcHeaderMap",
+    "WarcRecord",
+    "WarcRecordType",
+    "WarcWriter",
+    "read_record_at",
+    "serialize_record",
+]
