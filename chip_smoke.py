@@ -1,22 +1,36 @@
 """End-to-end smoke run of ``repro_torch`` on one NVIDIA GPU (H100, sm_90a).
 
-Drives the port's main path — synthetic gzip corpus → ``build_index`` →
-``IndexQueryService`` literal and regex searches (CDX+seek scan) — through
-its public entry points on the card, and holds every kernel of that path
-against its plain PyTorch version:
+Drives the port's two paths through their public entry points on the
+card — synthetic gzip corpus → ``build_index`` → ``IndexQueryService``
+literal and regex searches over CDX+seek, and the same corpus →
+``columnar.derive`` → ``QueryEngine.from_store`` → the same searches over
+the ``.repcol`` row-groups — and holds every kernel of both paths against
+its plain PyTorch version:
 
 1. corpus: 4 gzip shards of ``CorpusSpec(n_pages=10_000, seed=i)`` written
    by 4 spawned processes before any CUDA work;
 2. device: requires CUDA, prints ``nvidia-smi``'s name and power limit;
 3. build: compiles the CUDA sources with ``nvcc`` (``build/``);
 4. kernel checks: each kernel bit-identical to its plain version at the
-   main path's shapes and edge cases, timed with CUDA events;
+   main path's shapes and edge cases, timed with CUDA events
+   (``pattern_scan_batch``, ``digest_sig_partials_batch``,
+   ``pattern_scan_rowgroup``, and ``digest_signature_rowgroup``'s
+   sub-2048 widths);
 5. main path: ``build_index(device="cuda")``; every digest against
    ``zlib.adler32``, a seeded sample of signatures against
    ``signature_of``, and a ``save``/``load`` round trip;
 6. serve: ``IndexQueryService(device="cuda")`` over 8 requests, each
    held against the ``full_scan_search`` / ``full_scan_regex`` oracles;
-7. launch counts of both kernels on the main path (each must be > 0).
+7. derive: ``derive(device="cuda")`` of the same corpus into a ``.repcol``
+   store; its columns bit-equal to phase 5's index, a seeded sample of
+   payloads and every timestamp equal to the source records, and the
+   row-group kernel checked on the store's widest row-group;
+8. columnar serve: ``IndexQueryService(engine=QueryEngine.from_store(
+   store, device="cuda"))`` over phase 6's requests plus a ``time_range``
+   request, every hit list equal to the oracle and to phase 6's hits.
+
+The launch count of each kernel is set to 0 before each path (phases 5,
+6, 7, 8) and read after it; every kernel of a path must have launched.
 
 Every phase raises on failure. The script prints a ``{"kernels": ...}``
 JSON line, the card's name and power limit, and as its last line
@@ -28,13 +42,16 @@ Usage: ``python3 chip_smoke.py [--pages N] [--json-out PATH]``
 from __future__ import annotations
 
 import argparse
+import cProfile
 import json
+import pstats
 import shutil
 import subprocess
 import sys
 import time
 import zlib
 from concurrent.futures import ProcessPoolExecutor
+from datetime import datetime
 from multiprocessing import get_context
 from pathlib import Path
 
@@ -45,20 +62,25 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import obs  # noqa: E402
+from repro_torch.columnar import ColumnStore, derive  # noqa: E402
 from repro_torch.core.warc import FastWARCIterator  # noqa: E402
 from repro_torch.data.synth import CorpusSpec, records_in, write_corpus  # noqa: E402
 from repro_torch.index import (  # noqa: E402
-    CdxIndex, HeaderFilter, IndexQueryService, QueryRequest, build_index,
-    full_scan_regex, full_scan_search)
+    CdxIndex, HeaderFilter, IndexQueryService, QueryEngine, QueryRequest,
+    build_index, full_scan_regex, full_scan_search)
 from repro_torch.index.signature import signature_of  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.digest_sig import digest_sig as ds  # noqa: E402
+from repro_torch.kernels.digest_sig import digest_signature_rowgroup  # noqa: E402
 from repro_torch.kernels.pattern_scan import pattern_scan as ps  # noqa: E402
+from repro_torch.kernels.pattern_scan import find_pattern_mask_rowgroup  # noqa: E402
 
 N_SHARDS = 4
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (NVIDIA data sheet)
 SCALAR_OPS_PER_S = 67e12    # H100 SXM non-tensor 32-bit rate (data sheet)
 SIG_SAMPLE = 2048
+PAYLOAD_SAMPLE = 4096       # store payloads held against the source records
+PAD = 128                   # row-group zero tail (ROWGROUP_PAD)
 SLEEP_CYCLES = 4_000_000    # ~2 ms of device spin ahead of each timed call
 CDX_COLUMNS = ("shard_id", "offset", "comp_len", "uncomp_len", "rtype",
                "status", "digest", "signatures", "frame_off", "frame_base",
@@ -82,6 +104,11 @@ REQUESTS = [
      QueryRequest(b"web archive", HeaderFilter(status=200))),
 ]
 BROAD_SHARE = 0.10  # the broad literal's candidates, share of responses
+STORE_COLUMNS = (("digest", "digest"), ("signatures", "signatures"),
+                 ("offset", "offset"), ("rtype", "rtype"),
+                 ("status", "status"), ("length", "uncomp_len"),
+                 ("shard_id", "shard_id"), ("uri_off", "uri_off"),
+                 ("mime_off", "mime_off"))
 
 
 def log(msg: str) -> None:
@@ -180,6 +207,12 @@ def digest_cost(rows: int, width: int, kblock: int, n: int) -> tuple[int, int]:
             rows * width * (2 * (n - 1) + 3))
 
 
+def rowgroup_cost(rows: int, width: int, plen: int) -> tuple[int, int]:
+    """pattern_scan_rowgroup: read (rows, W+128) + pattern, write (rows, W);
+    one compare and one AND per pattern byte per position."""
+    return rows * (width + PAD) + 16 + rows * width, rows * width * 2 * plen
+
+
 # -- phase 4 ---------------------------------------------------------------
 def scan_inputs(rng, rows: int, width: int) -> tuple[torch.Tensor, np.ndarray]:
     pat = np.frombuffer(b"WARC/1.1\r\nWARC-T", np.uint8)  # 16 bytes
@@ -206,6 +239,94 @@ def digest_inputs(rng, rows: int, width: int) -> torch.Tensor:
         m[r, :n] = rng.integers(0, 256, n, dtype=np.uint8)
     m[0, :width] = 0xFF                        # forces the uint32 hash wrap
     return torch.from_numpy(m).cuda()
+
+
+def rowgroup_inputs(rng, rows: int, width: int, live: int
+                    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A (rows, W + 128) row-group with ``live`` payload rows of random
+    length over a small alphabet. Every row starts with the pattern and
+    ends, by row, with its 16-, 4- or 1-byte prefix (each at the last
+    valid position for that length) or its 9-byte prefix (straddling the
+    row's end for longer patterns); row 0 all 0xFF when ``live`` > 1.
+    Rows past ``live`` stay zero padding."""
+    pat = np.frombuffer(b"WARC/1.1\r\nWARC-T", np.uint8)
+    alphabet = np.frombuffer(b"WARC/1.\r\n-T", np.uint8)
+    m = np.zeros((rows, width + PAD), np.uint8)
+    lengths = rng.integers(16, width + 1, live)
+    lengths[-1] = width
+    for r, n in enumerate(lengths):
+        m[r, :n] = rng.choice(alphabet, n)
+        m[r, :16] = pat
+        k = (16, 4, 1, 9)[r % 4]
+        m[r, n - k:n] = pat[:k]
+    if live > 1:
+        m[0, :lengths[0]] = 0xFF
+    return m, lengths.astype(np.int64), pat
+
+
+def rowgroup_checks(results: dict) -> None:
+    """pattern_scan_rowgroup and the row-group wrappers on the card
+    against their plain versions (the CPU path runs the plain version)."""
+    rng = np.random.default_rng(SEED + 2)
+    ff = np.full(16, 0xFF, np.uint8)
+    err = 0
+    for width in (256, 1536, 2048, 8192):
+        for rows, live in ((1, 1), (3, 2), (1024, 1000)):
+            m, lengths, pat = rowgroup_inputs(rng, rows, width, live)
+            x = torch.from_numpy(m).cuda()
+            for plen in (1, 4, 16):
+                for p in (pat, ff):
+                    got = ps.pattern_scan_rowgroup(x, p, plen)
+                    want = ps.pattern_scan_rowgroup_plain(x, p, plen)
+                    torch.cuda.synchronize()
+                    d = int((got.int() - want.int()).abs().max())
+                    err = max(err, d)
+                    if d or (p is pat and not int(want.sum())):
+                        raise RuntimeError(
+                            f"pattern_scan_rowgroup B={rows} W={width} "
+                            f"P={plen}: max |kernel - plain| = {d}, plain "
+                            f"matches {int(want.sum())}")
+                for trim in (True, False):
+                    a = find_pattern_mask_rowgroup(
+                        m, lengths, pat[:plen].tobytes(), trim=trim,
+                        device="cuda")
+                    b = find_pattern_mask_rowgroup(
+                        m, lengths, pat[:plen].tobytes(), trim=trim,
+                        device="cpu")
+                    if a.shape != (live, width) or not np.array_equal(a, b):
+                        raise RuntimeError(
+                            f"find_pattern_mask_rowgroup B={rows} "
+                            f"live={live} W={width} P={plen} trim={trim}: "
+                            f"card != plain")
+            if rows == 1024:
+                ms = time_ms(lambda: ps.pattern_scan_rowgroup(x, pat, 16))
+                plain = time_ms(
+                    lambda: ps.pattern_scan_rowgroup_plain(x, pat, 16), 20)
+                b, _ = bound(*rowgroup_cost(rows, width, 16))
+                log(f"[kernels] pattern_scan_rowgroup B={rows} W={width} "
+                    f"P=16: {ms:.4g} ms/launch, bound {b:.4g} ms, plain "
+                    f"{plain:.4g} ms")
+    for width in (256, 1536):  # sub-2048 widths: block = width
+        for rows, live in ((6, 5), (1024, 1000)):
+            m = np.zeros((rows, width + PAD), np.uint8)
+            lengths = rng.integers(0, width + 1, live)
+            lengths[:3] = (width, 0, width - 1)
+            for r, n in enumerate(lengths):
+                m[r, :n] = rng.integers(0, 256, n, dtype=np.uint8)
+            m[2, :width - 1] = 0xFF           # forces the uint32 hash wrap
+            for a, b in zip(
+                    digest_signature_rowgroup(m, lengths, block=width,
+                                              device="cuda"),
+                    digest_signature_rowgroup(m, lengths, block=width,
+                                              device="cpu")):
+                if not np.array_equal(a, b):
+                    raise RuntimeError(
+                        f"digest_signature_rowgroup B={rows} W={width}: "
+                        f"card != plain")
+    results["max_abs_err"]["pattern_scan_rowgroup"] = err
+    log(f"[kernels] pattern_scan_rowgroup and the row-group wrappers "
+        f"bit-identical to their plain versions (max |kernel - plain| = "
+        f"{err}); digest_signature_rowgroup card == plain at W=256, 1536")
 
 
 def kernel_checks(results: dict) -> None:
@@ -271,6 +392,11 @@ def dominant_shape(kernel: str) -> tuple[int, int]:
     return quantize_count(round(c[best] / width / launches)), width
 
 
+def hit_keys(hits) -> list:
+    return [(h.index_row, h.shard, h.offset, h.uri, h.n_matches,
+             h.positions.tolist(), h.excerpt) for h in hits]
+
+
 # -- phase 5 ---------------------------------------------------------------
 def main_build(paths: list[str], workdir: Path, results: dict) -> CdxIndex:
     obs.reset()
@@ -328,7 +454,8 @@ def main_build(paths: list[str], workdir: Path, results: dict) -> CdxIndex:
 
 
 # -- phase 6 ---------------------------------------------------------------
-def serve(index: CdxIndex, paths: list[str], results: dict) -> None:
+def serve(index: CdxIndex, paths: list[str], results: dict) -> dict:
+    """Phase 6; returns ``label -> (oracle, hit keys)`` per request."""
     reqs = []
     for _, r in REQUESTS:  # every hit comes back: top_k covers the corpus
         r.top_k = len(index)
@@ -349,6 +476,7 @@ def serve(index: CdxIndex, paths: list[str], results: dict) -> None:
     row_of = {(index.shard_paths[int(s)], int(o)): i
               for i, (s, o) in enumerate(zip(index.shard_id, index.offset))}
     served = []
+    checked = {}
     for (label, req), resp in zip(REQUESTS, responses):
         if req.regex:
             oracle = full_scan_regex(paths, req.pattern)
@@ -362,6 +490,7 @@ def serve(index: CdxIndex, paths: list[str], results: dict) -> None:
         if got != oracle or resp.total_matches != len(oracle):
             raise RuntimeError(f"request {label!r}: {len(got)} hits differ "
                                f"from the {len(oracle)}-record oracle")
+        checked[label] = (oracle, hit_keys(resp.hits))
         served.append({"label": label, "hits": len(got),
                        "latency_ms": resp.latency_s * 1e3})
         log(f"[serve] {label} {req.pattern!r}: {len(got)} records == "
@@ -377,9 +506,182 @@ def serve(index: CdxIndex, paths: list[str], results: dict) -> None:
         f"candidates = {share:.3f} of the {n_resp} response records; scan "
         f"split (s): " + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
         + f"; engine {stats}")
+    return checked
 
 
-def kernel_line(results: dict) -> dict:
+# -- phase 7 ---------------------------------------------------------------
+def warc_date(raw: bytes | None) -> int:
+    """WARC-Date → epoch seconds, 0 when absent (independent of derive's
+    parser)."""
+    if not raw:
+        return 0
+    return int(datetime.fromisoformat(raw.decode("ascii").strip())
+               .timestamp())
+
+
+def derive_phase(paths: list[str], workdir: Path, index: CdxIndex,
+                 results: dict) -> tuple[ColumnStore, np.ndarray]:
+    """Phase 7; returns the store and each record's WARC-Date as read from
+    the source records."""
+    out = workdir / "corpus.repcol"
+    obs.reset()
+    ds.launches = 0
+    t0 = time.perf_counter()
+    store = derive(paths, str(out), device="cuda")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    results["derive_digest_sig_launches"] = ds.launches
+    c = obs.snapshot().counters
+    stage = {k: c.get(f"derive.stage.{k}_us", 0) / 1e6
+             for k in ("parse", "digest_sig", "pack_write")}
+    split = {k: c.get(f"stage.digest_signature_rowgroup.{k}_us", 0) / 1e6
+             for k in ("h2d", "kernel", "d2h", "fold")}
+    waste = store.pad_waste_ratio()
+    size = out.stat().st_size
+    results["derive"] = {
+        "records": len(store), "seconds": dt,
+        "records_per_s": len(store) / dt, "stages_s": stage,
+        "digest_sig_split_s": split, "rowgroups": store.n_rowgroups,
+        "widths": sorted({int(w) for w in store.rg_width}),
+        "pad_waste_ratio": waste, "file_bytes": size,
+        "digest_sig_launches": ds.launches}
+    log(f"[derive] {len(store)} records in {dt:.3f} s = "
+        f"{len(store) / dt:.1f} records/s; {store.n_rowgroups} row-groups, "
+        f"pad waste {waste:.4f}, {size} bytes; {ds.launches} digest_sig "
+        f"launches; stages (s): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stage.items())
+        + "; digest_sig split (s): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+
+    if len(store) != len(index) or store.shard_paths != index.shard_paths:
+        raise RuntimeError("store and index cover different records")
+    for col, idx_col in STORE_COLUMNS:
+        if not np.array_equal(getattr(store, col), getattr(index, idx_col)):
+            raise RuntimeError(f"store column {col} != index {idx_col}")
+    if (store.uri_heap, store.mime_heap) != (index.uri_heap,
+                                             index.mime_heap):
+        raise RuntimeError("store heaps != index heaps")
+    n_sample = min(PAYLOAD_SAMPLE, len(store))
+    sample = set(np.random.default_rng(SEED).choice(
+        len(store), n_sample, replace=False).tolist())
+    stamps = np.zeros(len(store), np.int64)
+    row = 0
+    for p in paths:
+        for rec in FastWARCIterator(p, parse_http=False):
+            stamps[row] = warc_date(rec.header_bytes(b"WARC-Date:"))
+            if row in sample and store.payload(row) != rec.content:
+                raise RuntimeError(f"row {row}: store payload != record")
+            row += 1
+    if not np.array_equal(store.timestamp.astype(np.int64), stamps):
+        raise RuntimeError("store timestamps != the records' WARC-Date")
+    log(f"[derive] columns and heaps == phase 5's index; {n_sample} "
+        f"sampled payloads == record content; every timestamp == WARC-Date")
+
+    # the row-group kernel on the store's widest row-group, real bytes
+    g = max(range(store.n_rowgroups),
+            key=lambda i: (int(store.rg_width[i]), int(store.rg_rows[i])))
+    matrix, _, lens = store.rowgroup(g)
+    x = torch.from_numpy(np.array(matrix)).cuda()
+    del matrix
+    pat = np.frombuffer(b"nginx/1.25\r\nDate", np.uint8)
+    for plen in (1, 4, 16):
+        got = ps.pattern_scan_rowgroup(x, pat, plen)
+        want = ps.pattern_scan_rowgroup_plain(x, pat, plen)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise RuntimeError(f"pattern_scan_rowgroup on row-group {g} "
+                               f"P={plen}: card != plain")
+    log(f"[derive] pattern_scan_rowgroup == plain on the widest row-group "
+        f"({tuple(x.shape)}, {lens.size} live rows)")
+    return store, stamps
+
+
+# -- phase 8 ---------------------------------------------------------------
+def columnar_serve(store: ColumnStore, stamps: np.ndarray,
+                   checked: dict, results: dict) -> None:
+    lo, hi = int(stamps.min()), int(stamps.max()) + 1
+    timed = ("literal, time range",
+             QueryRequest(b"web archive", HeaderFilter(time_range=(lo, hi)),
+                          top_k=len(store)))
+    requests = REQUESTS + [timed]
+    obs.reset()
+    ps.launches = ps.rowgroup_launches = 0
+    engine = QueryEngine.from_store(store, device="cuda")
+    t0 = time.perf_counter()
+    with IndexQueryService(engine.index, engine=engine) as svc:
+        responses = svc.serve([r for _, r in requests])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    results["rowgroup_launches"] = ps.rowgroup_launches
+    if ps.launches:
+        raise RuntimeError(f"the columnar path launched the batch scan "
+                           f"{ps.launches} times")
+    results["rowgroup_shape"] = dominant_shape("find_pattern_mask_rowgroup")
+    c = obs.snapshot().counters
+    split = {k: c.get(f"stage.find_pattern_mask_rowgroup.{k}_us", 0) / 1e6
+             for k in ("h2d", "kernel", "d2h")}
+    in_range = set(np.flatnonzero((stamps >= lo) & (stamps < hi)).tolist())
+    row_of = {(store.shard_paths[int(s)], int(o)): i
+              for i, (s, o) in enumerate(zip(store.shard_id, store.offset))}
+    served = []
+    for (label, req), resp in zip(requests, responses):
+        if req is timed[1]:
+            oracle, want = checked["selective literal"]
+            oracle = {k: v for k, v in oracle.items()
+                      if row_of[k] in in_range}
+            want = [k for k in want if k[0] in in_range]
+        else:
+            oracle, want = checked[label]
+        got = {(h.shard, h.offset): h.n_matches for h in resp.hits}
+        if got != oracle or resp.total_matches != len(oracle):
+            raise RuntimeError(f"columnar request {label!r}: {len(got)} "
+                               f"hits differ from the {len(oracle)}-record "
+                               f"oracle")
+        if hit_keys(resp.hits) != want:
+            raise RuntimeError(f"columnar request {label!r}: hits differ "
+                               f"from phase 6's")
+        served.append({"label": label, "hits": len(got),
+                       "latency_ms": resp.latency_s * 1e3})
+        log(f"[columnar] {label} {req.pattern!r}: {len(got)} records == "
+            f"oracle == phase 6, {resp.latency_s * 1e3:.3f} ms")
+    if engine.header_mask(HeaderFilter(time_range=(0, lo))).any():
+        raise RuntimeError("an empty time range selected records")
+    stats = dict(engine.stats)
+    results["columnar"] = {"requests": served, "seconds": dt,
+                           "stats": stats, "scan_split_s": split,
+                           "rowgroup_launches": ps.rowgroup_launches}
+    log(f"[columnar] {len(requests)} requests in {dt:.3f} s; "
+        f"{ps.rowgroup_launches} pattern_scan_rowgroup launches; scan split "
+        f"(s): " + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+        + f"; engine {stats}")
+
+
+def profile_broad(store: ColumnStore, results: dict) -> None:
+    """Where the broad literal's columnar search spends its time: one
+    more run under ``cProfile`` (host functions by own time; the scan
+    wrapper's device work shows up inside its copies and synchronizes)."""
+    pattern = REQUESTS[0][1].pattern
+    engine = QueryEngine.from_store(store, device="cuda")
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    n = len(engine.search(pattern))
+    torch.cuda.synchronize()
+    prof.disable()
+    dt = time.perf_counter() - t0
+    stats = pstats.Stats(prof).stats
+    rows = sorted(((f"{Path(f).name}:{line}({name})", tt, ct)
+                   for (f, line, name), (_, _, tt, ct, _) in stats.items()),
+                  key=lambda r: -r[1])[:12]
+    results["broad_profile"] = {"seconds": dt, "hits": n,
+                                "top_tottime_s": rows}
+    log(f"[profile] broad literal, columnar, under cProfile: {n} hits in "
+        f"{dt:.3f} s; own time (s), cumulative (s):")
+    for name, tt, ct in rows:
+        log(f"[profile]   {tt:8.4f} {ct:8.4f}  {name}")
+
+
+def kernel_line(results: dict, store: ColumnStore) -> dict:
     rng = np.random.default_rng(SEED + 1)
     rows, width = results["pattern_scan_shape"]
     x, pat = scan_inputs(rng, rows, width)
@@ -392,6 +694,18 @@ def kernel_line(results: dict) -> dict:
     dms = time_ms(lambda: ds.digest_sig_partials_batch(y, n=4, block=kblock))
     dplain = time_ms(lambda: ds.digest_sig_plain(y, n=4, block=kblock), 20)
     b_dig, by_dig = bound(*digest_cost(drows, dwidth, kblock, 4))
+    # the row-group scan on the store's fullest row-group of phase 8's
+    # dominant width: the live rows, as the wrapper copies them
+    _, gwidth = results["rowgroup_shape"]
+    g = max(np.flatnonzero(store.rg_width == gwidth),
+            key=lambda i: int(store.rg_rows[i]))
+    matrix, _, lens = store.rowgroup(int(g))
+    z = torch.from_numpy(np.array(matrix[:lens.size])).cuda()
+    del matrix
+    zpat = np.frombuffer(b"nginx/1.25\r\nDate", np.uint8)
+    gms = time_ms(lambda: ps.pattern_scan_rowgroup(z, zpat, 16))
+    gplain = time_ms(lambda: ps.pattern_scan_rowgroup_plain(z, zpat, 16), 20)
+    b_grp, by_grp = bound(*rowgroup_cost(lens.size, gwidth, 16))
     return {"kernels": [
         {"name": "pattern_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/pattern_scan/csrc/pattern_scan.cu",
@@ -404,11 +718,23 @@ def kernel_line(results: dict) -> dict:
         {"name": "digest_sig", "route": "cuda",
          "source": "src/repro_torch/kernels/digest_sig/csrc/digest_sig.cu",
          "replaces": "src/repro/kernels/digest_sig/digest_sig.py:84",
-         "launches": results["digest_sig_launches"],
+         "launches": (results["digest_sig_launches"]
+                      + results["derive_digest_sig_launches"]),
          "max_abs_err": results["max_abs_err"]["digest_sig"],
          "ms": dms, "plain_ms": dplain, "bound_ms": b_dig,
          "bound_by": by_dig, "library_ms": None,
-         "shape": [drows, dwidth + 128]},
+         "shape": [drows, dwidth + 128],
+         "launches_by_phase": {
+             "build": results["digest_sig_launches"],
+             "derive": results["derive_digest_sig_launches"]}},
+        {"name": "pattern_scan_rowgroup", "route": "cuda",
+         "source": "src/repro_torch/kernels/pattern_scan/csrc/pattern_scan.cu",
+         "replaces": "src/repro/kernels/pattern_scan/pattern_scan.py:185",
+         "launches": results["rowgroup_launches"],
+         "max_abs_err": results["max_abs_err"]["pattern_scan_rowgroup"],
+         "ms": gms, "plain_ms": gplain, "bound_ms": b_grp,
+         "bound_by": by_grp, "library_ms": None,
+         "shape": [int(lens.size), gwidth + PAD], "pattern_len": 16},
     ]}
 
 
@@ -445,16 +771,24 @@ def main() -> int:
                 log(f"[build-kernels] {stem}: {line.strip()}")
 
     kernel_checks(results)
+    rowgroup_checks(results)
     index = main_build(paths, workdir, results)
-    serve(index, paths, results)
+    checked = serve(index, paths, results)
+    store, stamps = derive_phase(paths, workdir, index, results)
+    columnar_serve(store, stamps, checked, results)
 
-    log(f"[launches] main path: digest_sig {results['digest_sig_launches']} "
-        f"(build), pattern_scan {results['pattern_scan_launches']} (serve)")
-    if results["digest_sig_launches"] <= 0 or \
-            results["pattern_scan_launches"] <= 0:
-        raise RuntimeError("a kernel of the main path was never launched")
+    launches = {"digest_sig (build)": results["digest_sig_launches"],
+                "pattern_scan (serve)": results["pattern_scan_launches"],
+                "digest_sig (derive)": results["derive_digest_sig_launches"],
+                "pattern_scan_rowgroup (columnar serve)":
+                    results["rowgroup_launches"]}
+    log(f"[launches] main paths: {launches}")
+    if min(launches.values()) <= 0:
+        raise RuntimeError("a kernel of a main path was never launched")
 
-    line = kernel_line(results)
+    profile_broad(store, results)
+    line = kernel_line(results, store)
+    store.close()
     results.update(line)
     results["seconds"] = time.perf_counter() - t_start
     if args.json_out:

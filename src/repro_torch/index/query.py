@@ -20,15 +20,23 @@ find_pattern_mask_batch` on the engine's device — one kernel launch per
 Stages 1–2 are reified as a :class:`QueryPlan` (``engine.plan`` /
 ``engine.plan_regex``); ``engine.execute`` runs a plan to hits.
 
+**Columnar path**: with a derived
+:class:`repro_torch.columnar.ColumnStore` attached (``attach_store`` /
+``from_store``), stage 3 becomes ``execute_columnar`` — candidates are
+grouped by the row-group that already holds their payload in the
+kernel's packed layout, and each group is **one**
+:func:`repro_torch.kernels.pattern_scan.find_pattern_mask_rowgroup`
+launch over the mmapped matrix. No per-record seek, decompression or
+HTTP parse on the query path; payload bytes are materialized only for
+candidates whose scan stage hit and that need verification. Hits are
+identical to the CDX+seek path's. The store also carries the WARC-Date
+``timestamp`` column that ``HeaderFilter.time_range`` reads.
+
 **Regex queries** (``search_regex``) compile to the same shape: the
 regex's required literal runs drive the signature pre-filter and the
 kernel scan, and surviving candidates are host-verified with ``re``. A
 regex with no usable literal degrades to host ``re`` over the
 header-filtered candidates.
-
-The columnar store path of the reference (``attach_store``,
-``from_store``, ``execute_columnar``, ``time_range`` filters) is not
-ported yet and raises.
 
 ``engine.stats`` records how much work each stage avoided (candidate
 counts, records scanned, kernel dispatches).
@@ -38,6 +46,7 @@ from __future__ import annotations
 import re
 from dataclasses import dataclass, field
 from re import _parser as _sre_parse  # type: ignore[attr-defined]
+from typing import TYPE_CHECKING
 
 import numpy as np
 
@@ -45,6 +54,9 @@ from repro_torch._device import resolve_device
 from repro_torch.core.warc.record import WarcRecordType
 from .cdx import CdxIndex, RandomAccessReader
 from .signature import candidate_mask
+
+if TYPE_CHECKING:  # annotation only (no import cycle)
+    from repro_torch.columnar.store import ColumnStore
 
 __all__ = ["HeaderFilter", "PatternHit", "QueryEngine", "QueryPlan",
            "full_scan_search", "full_scan_regex", "host_positions",
@@ -55,16 +67,20 @@ _BATCH_BYTES = 4 << 20   # …payload bytes, whichever trips first
 _SCAN_BLOCK = 8192       # width-bucket granularity: few-KiB records pad
                          # ≤2×, not to the 64 KiB whole-buffer default
 _EXCERPT_BYTES = 80      # hit excerpt length after the first match
-_NOT_PORTED = ("the columnar store path is not ported yet (ROADMAP: "
-               "columnar store and derive)")
+_COLUMNAR_DENSITY = 0.25  # candidate share above which scanning the whole
+                          # row-group beats gathering candidates into a
+                          # compact matrix (gather copies; whole-group reads
+                          # the mapping in place)
 
 
 @dataclass
 class HeaderFilter:
     """Columnar header predicates (all optional, AND-combined).
 
-    ``time_range`` — ``(lo, hi)`` epoch seconds, half-open — needs the
-    derived store's timestamp column, which the CDX index does not carry.
+    ``time_range`` — ``(lo, hi)`` epoch seconds, half-open — evaluates
+    against the derived store's WARC-Date timestamp column and therefore
+    needs a store-attached engine (the CDX index does not carry
+    timestamps).
     """
 
     record_type: WarcRecordType | None = None
@@ -208,24 +224,56 @@ class QueryEngine:
     """Run header + pattern queries against an indexed corpus on
     ``device`` (default the GPU; ``"cpu"`` only when asked)."""
 
-    def __init__(self, index: CdxIndex, *, device="cuda") -> None:
+    def __init__(self, index: CdxIndex, *,
+                 store: "ColumnStore | None" = None, device="cuda") -> None:
         self.device = resolve_device(device)
         self.index = index
         self._readers: dict[int, RandomAccessReader] = {}
+        self._store: "ColumnStore | None" = None
         self.stats = {"queries": 0, "header_candidates": 0,
                       "sig_candidates": 0, "records_scanned": 0,
                       "bytes_scanned": 0, "kernel_dispatches": 0,
-                      "batches": 0}
+                      "batches": 0, "store_fetches": 0}
+        if store is not None:
+            self.attach_store(store)
 
     @classmethod
-    def from_store(cls, store, **kwargs) -> "QueryEngine":
-        raise NotImplementedError(_NOT_PORTED)
+    def from_store(cls, store: "ColumnStore", **kwargs) -> "QueryEngine":
+        """An engine running standalone on a derived store — planner
+        stages over :meth:`~repro_torch.columnar.ColumnStore.as_index`'s
+        columns, scan stage over the store's row-groups. No CDX file
+        and no archive readers involved."""
+        engine = cls(store.as_index(), **kwargs)
+        engine.attach_store(store, validate=False)
+        return engine
 
-    def attach_store(self, store, validate: bool = True) -> None:
-        raise NotImplementedError(_NOT_PORTED)
+    def attach_store(self, store: "ColumnStore",
+                     validate: bool = True) -> None:
+        """Attach a derived columnar store covering this engine's corpus.
 
-    def execute_columnar(self, plan: "QueryPlan") -> list["PatternHit"]:
-        raise NotImplementedError(_NOT_PORTED)
+        Attached, the engine routes ``execute`` through
+        :meth:`execute_columnar` and serves ``_fetch`` from the store's
+        row-groups (no seek/decompress). ``validate`` checks the store
+        rows are 1:1 with the index rows (derive and CDX build share row
+        order by construction; a store derived from a *different* corpus
+        is rejected here rather than silently mis-scanned).
+        """
+        if validate:
+            if len(store) != len(self.index):
+                raise ValueError(
+                    f"store has {len(store)} rows, index has "
+                    f"{len(self.index)} — not the same corpus")
+            if list(store.shard_paths) != list(self.index.shard_paths):
+                raise ValueError("store and index cover different shards")
+            if not np.array_equal(np.asarray(store.offset),
+                                  np.asarray(self.index.offset)):
+                raise ValueError("store row order does not match the "
+                                 "index (offset columns differ)")
+        self._store = store
+
+    @property
+    def store(self) -> "ColumnStore | None":
+        return self._store
 
     # -- stage 1: header predicates (pure columnar) ----------------------
     def header_mask(self, flt: HeaderFilter | None) -> np.ndarray:
@@ -246,10 +294,14 @@ class QueryEngine:
         if flt.url_prefix is not None:
             mask &= np.char.startswith(idx.uris(), bytes(flt.url_prefix))
         if flt.time_range is not None:
-            raise ValueError(
-                "time_range filters read the derived store's timestamp "
-                "column (the CDX index carries no WARC-Date); "
-                + _NOT_PORTED)
+            if self._store is None:
+                raise ValueError(
+                    "time_range filters read the derived store's "
+                    "timestamp column — attach_store() first (the CDX "
+                    "index carries no WARC-Date)")
+            lo, hi = flt.time_range
+            ts = self._store.timestamp.astype(np.int64)
+            mask &= (ts >= int(lo)) & (ts < int(hi))
         return mask
 
     # -- stages 1+2: plan construction -----------------------------------
@@ -332,9 +384,13 @@ class QueryEngine:
                 columnar: bool | None = None) -> list[PatternHit]:
         """Run a plan's scan stage: fetch, batch, launch, verify.
 
-        ``columnar=True`` asks for the columnar store path, which is not
-        ported yet and raises.
+        With a store attached the scan routes through
+        :meth:`execute_columnar` (identical hits); pass
+        ``columnar=False`` to force the fetch-and-batch path, or
+        ``columnar=True`` to require the store (raises if absent).
         """
+        if columnar is None:
+            columnar = self._store is not None
         if columnar:
             return self.execute_columnar(plan)
         hits: list[PatternHit] = []
@@ -355,8 +411,101 @@ class QueryEngine:
         hits.sort(key=lambda h: h.index_row)
         return hits
 
+    # -- stage 3, columnar: kernels over mmapped row-groups ---------------
+    def execute_columnar(self, plan: QueryPlan) -> list[PatternHit]:
+        """Run a plan's scan stage against the attached derived store.
+
+        Candidates are grouped by row-group; each group is one row-group
+        kernel launch — **dense** groups (candidate share ≥
+        ``_COLUMNAR_DENSITY`` of the group's live rows) scan the mmapped
+        matrix in place, **sparse** groups gather just the candidate rows
+        into a compact matrix first. Payload bytes are copied out only
+        for candidates whose scan stage hit and that need verification;
+        everything else never leaves the mapping. Hits are identical to
+        :meth:`execute` over the CDX+seek path.
+        """
+        store = self._store
+        if store is None:
+            raise ValueError("no columnar store attached — attach_store() "
+                             "or QueryEngine.from_store()")
+        hits: list[PatternHit] = []
+        if plan.rows.size == 0:
+            return hits
+        from repro_torch.kernels.pattern_scan import find_pattern_mask_rowgroup
+
+        gids = store.rg_id[plan.rows].astype(np.int64)
+        order = np.argsort(gids, kind="stable")
+        ordered = plan.rows[order]
+        bounds = np.flatnonzero(np.diff(gids[order])) + 1
+        # short-literal plans need no per-candidate verification: the
+        # kernel positions are final and the excerpt window slices
+        # straight out of the row-group matrix — no payload copy at all
+        lit = plan.literal if plan.literal is not None else plan.pattern
+        fast_literal = (plan.regex is None and plan.kernel_pattern is not None
+                        and len(lit) <= len(plan.kernel_pattern))
+        for chunk in np.split(ordered, bounds):
+            g = int(store.rg_id[chunk[0]])
+            lengths = store.length[chunk].astype(np.int64)
+            self.stats["batches"] += 1
+            self.stats["records_scanned"] += int(chunk.size)
+            self.stats["bytes_scanned"] += int(lengths.sum())
+            if plan.needs_host_scan:  # materialize each candidate
+                for r in chunk:
+                    buf = store.payload(int(r))
+                    positions, first_len = plan.verify(buf,
+                                                       plan.host_scan(buf))
+                    if positions.size:
+                        hits.append(self.make_hit(int(r), buf, positions,
+                                                  first_len))
+                continue
+            matrix, _, all_lens = store.rowgroup(g)
+            if chunk.size >= _COLUMNAR_DENSITY * int(store.rg_rows[g]):
+                # dense: one launch over the whole mmapped matrix
+                source = matrix
+                mask_rows = store.rg_row[chunk].astype(np.int64)
+                mask_lens = all_lens
+            else:
+                # sparse: gather the candidates into a compact matrix
+                source = matrix[store.rg_row[chunk].astype(np.int64)]
+                mask_rows = np.arange(chunk.size)
+                mask_lens = lengths
+            masks = find_pattern_mask_rowgroup(
+                source, mask_lens, plan.kernel_pattern, trim=False,
+                device=self.device)
+            self.stats["kernel_dispatches"] += 1
+            # one pass over the whole group mask instead of a
+            # flatnonzero per candidate; row-major order keeps each
+            # candidate's positions one contiguous hit_cols run
+            flat = np.flatnonzero(masks.view(bool))
+            hit_rows, hit_cols = np.divmod(flat, masks.shape[1])
+            # trim=False left windows past each row's true end in the
+            # mask; drop them here on the compact hit list
+            valid = hit_cols < np.maximum(
+                mask_lens - len(plan.kernel_pattern) + 1, 0)[hit_rows]
+            hit_rows = hit_rows[valid]
+            hit_cols = hit_cols[valid]
+            starts = np.searchsorted(hit_rows, mask_rows, side="left")
+            ends = np.searchsorted(hit_rows, mask_rows, side="right")
+            for i in np.flatnonzero(ends > starts):
+                r = int(chunk[i])
+                lpos = hit_cols[starts[i]:ends[i]].astype(np.int64)
+                if fast_literal:  # positions final; excerpt off the row
+                    row = source[int(mask_rows[i])][:int(lengths[i])]
+                    hits.append(self.make_hit(r, row, lpos, len(lit)))
+                    continue
+                buf = store.payload(r)
+                positions, first_len = plan.verify(buf, lpos)
+                if positions.size:
+                    hits.append(self.make_hit(r, buf, positions,
+                                              first_len))
+        hits.sort(key=lambda h: h.index_row)
+        return hits
+
     # -- internals -------------------------------------------------------
     def _fetch(self, row: int) -> bytes:
+        if self._store is not None:  # row-group copy-out: no seek/inflate
+            self.stats["store_fetches"] += 1
+            return self._store.payload(row)
         sid = int(self.index.shard_id[row])
         reader = self._readers.get(sid)
         if reader is None:

@@ -45,10 +45,17 @@ class QueryResponse:
 
 class IndexQueryService:
     """Drain query requests in batches against one shared engine, on
-    ``device`` (default the GPU; ``"cpu"`` only when asked)."""
+    ``device`` (default the GPU; ``"cpu"`` only when asked).
 
-    def __init__(self, index: CdxIndex, *, device="cuda") -> None:
-        self.engine = QueryEngine(index, device=device)
+    ``engine`` serves through a caller-built engine instead (e.g.
+    :meth:`QueryEngine.from_store` over a derived columnar store), which
+    brings its own device.
+    """
+
+    def __init__(self, index: CdxIndex, *, device="cuda",
+                 engine: QueryEngine | None = None) -> None:
+        self.engine = (engine if engine is not None
+                       else QueryEngine(index, device=device))
         self._queue: list[QueryRequest] = []
         self.stats = {"requests": 0, "batches": 0, "hits_returned": 0,
                       "serve_s": 0.0}

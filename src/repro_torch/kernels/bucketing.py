@@ -19,7 +19,8 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["ROWGROUP_PAD", "SMALL_BLOCK", "as_u8", "bucket_width",
-           "dispatch_count", "payload_width", "quantize_count"]
+           "check_rowgroup", "dispatch_count", "payload_width",
+           "quantize_count"]
 
 # Width-bucket granularity for payloads below one full kernel block
 # (digest path: the 2048 Adler block is an overflow *bound*, not a width
@@ -39,6 +40,27 @@ def as_u8(data) -> np.ndarray:
     if isinstance(data, (bytes, bytearray, memoryview)):
         return np.frombuffer(bytes(data), dtype=np.uint8)
     return np.asarray(data, np.uint8)
+
+
+def check_rowgroup(matrix, lengths) -> tuple[np.ndarray, np.ndarray, int]:
+    """Validate a packed row-group and its live rows' true lengths.
+
+    ``matrix`` must be a 2-D uint8 ``(B, width + ROWGROUP_PAD)`` array
+    with ``width > 0``; ``lengths`` covers its first ``1..B`` rows.
+    Returns ``(matrix, lengths as int64, width)``.
+    """
+    mat = np.asarray(matrix)
+    if mat.dtype != np.uint8 or mat.ndim != 2:
+        raise ValueError("matrix must be a 2-D uint8 array")
+    nrows, padded_width = mat.shape
+    width = padded_width - ROWGROUP_PAD
+    if width <= 0:
+        raise ValueError("matrix must carry the ROWGROUP_PAD zero tail")
+    lengths = np.asarray(lengths, np.int64)
+    if not 0 < lengths.size <= nrows:
+        raise ValueError(f"need 1 <= live rows <= {nrows}, got "
+                         f"{lengths.size}")
+    return mat, lengths, width
 
 
 def quantize_count(n: int) -> int:

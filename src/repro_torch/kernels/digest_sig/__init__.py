@@ -6,7 +6,8 @@ construction reads each payload byte once.
 """
 from .digest_sig import (BLOCK, FNV_PRIME, HPAD, digest_sig_partials_batch,
                          digest_sig_plain)
-from .ops import combine_partials, digest_signature_batch
+from .ops import (combine_partials, digest_signature_batch,
+                  digest_signature_rowgroup)
 from .ref import digest_signature_reference
 
 __all__ = [
@@ -17,5 +18,6 @@ __all__ = [
     "digest_sig_partials_batch",
     "digest_sig_plain",
     "digest_signature_batch",
+    "digest_signature_rowgroup",
     "digest_signature_reference",
 ]

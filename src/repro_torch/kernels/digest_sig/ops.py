@@ -13,9 +13,13 @@ and finishes on the host:
   and the batch ``packbits`` fold — bit-identical to
   :func:`repro_torch.index.signature.signature_of` per row.
 
-Each bucket's time is split into host-to-device copy, kernel,
+``digest_signature_rowgroup`` does the same for a row-group that the
+columnar derive already packed in the kernel's layout: one launch, no
+bucketing.
+
+Each launch's time is split into host-to-device copy, kernel,
 device-to-host copy and host fold, published as the
-``stage.digest_signature_batch.{h2d,kernel,d2h,fold}_us`` counters.
+``stage.<wrapper>.{h2d,kernel,d2h,fold}_us`` counters.
 """
 from __future__ import annotations
 
@@ -25,12 +29,14 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch._device import resolve_device
-from repro_torch.kernels.bucketing import as_u8, payload_width, quantize_count
+from repro_torch._device import resolve_device, to_device
+from repro_torch.kernels.bucketing import (as_u8, check_rowgroup,
+                                           payload_width, quantize_count)
 from repro_torch.obs.kernels import record_dispatch
 from .digest_sig import BLOCK, HPAD, digest_sig_partials_batch
 
-__all__ = ["combine_partials", "digest_signature_batch"]
+__all__ = ["combine_partials", "digest_signature_batch",
+           "digest_signature_rowgroup"]
 
 MOD = 65521  # Adler-32 modulus
 
@@ -153,3 +159,52 @@ def digest_signature_batch(payloads, *, bits: int | None = None,
                            "fold_us": int((t4 - t3) * 1e6)},
                           prefix="stage.digest_signature_batch.")
     return digests, sigs
+
+
+def digest_signature_rowgroup(matrix, lengths, *, bits: int | None = None,
+                              n: int | None = None, k: int | None = None,
+                              block: int = BLOCK, device="cuda"
+                              ) -> tuple[np.ndarray, np.ndarray]:
+    """Fused digests + signatures over an **already-packed row-group**.
+
+    The columnar derive entry point: ``matrix`` is a ``(B, width +
+    HPAD)`` uint8 row-group in the kernel's native layout (payload bytes
+    left-justified, zero tail), ``lengths`` the true payload lengths of
+    the first ``len(lengths)`` rows; trailing rows are padding and are
+    neither copied to ``device`` nor swept. ``width`` must be a multiple
+    of ``block`` (below 2048 the caller passes ``block = width``: the
+    whole row is one Adler block).
+
+    Returns ``(digests, signatures)`` for the live rows, bit-identical
+    to :func:`digest_signature_batch` on the same payloads.
+    """
+    bits, n, k = _sig_geometry(bits, n, k)
+    dev = resolve_device(device)
+    mat, lengths, width = check_rowgroup(matrix, lengths)  # HPAD == its pad
+    live = lengths.size
+    if block <= 0 or width % block:
+        raise ValueError(f"row-group width {width} must be a multiple of "
+                         f"block={block}")
+    if lengths.max() > width:
+        raise ValueError("length exceeds row-group width")
+    record_dispatch("digest_signature_rowgroup", width=width, rows=live,
+                    padded_rows=live, useful_bytes=int(lengths.sum()))
+    t0 = time.perf_counter()
+    x = to_device(mat[:live], dev)
+    _sync(dev)
+    t1 = time.perf_counter()
+    s, t, h = digest_sig_partials_batch(x, n=n, block=block)
+    _sync(dev)
+    t2 = time.perf_counter()
+    del x  # the CPU path's tensor is a view of ``matrix``
+    s, t, h = s.cpu().numpy(), t.cpu().numpy(), h.cpu().numpy()
+    t3 = time.perf_counter()
+    out = _host_fold(s, t, h, lengths, width=width, bits=bits, n=n, k=k,
+                     block=block)
+    t4 = time.perf_counter()
+    obs.registry().fold_counters({"h2d_us": int((t1 - t0) * 1e6),
+                                  "kernel_us": int((t2 - t1) * 1e6),
+                                  "d2h_us": int((t3 - t2) * 1e6),
+                                  "fold_us": int((t4 - t3) * 1e6)},
+                                 prefix="stage.digest_signature_rowgroup.")
+    return out

@@ -1,17 +1,24 @@
 // Multi-byte pattern scan over a padded byte matrix, for sm_90a.
 //
-// Replaces: src/repro/kernels/pattern_scan/pattern_scan.py : pattern_scan_batch
-//           (Pallas body _scan_kernel).
+// Replaces: src/repro/kernels/pattern_scan/pattern_scan.py
+//   pattern_scan_batch    (Pallas body _scan_kernel): rows of W + 16 bytes;
+//   pattern_scan_rowgroup (Pallas body _scan_kernel_group): rows of
+//                         W + 128 bytes, the columnar store's row-groups.
 //   mask[r, i] = AND_{j < P} buf[r, i + j] == p[j],  P <= 16.
 //
-// Bound on the H100: bytes moved. Per row the kernel reads W + 16 input
-// bytes and writes W mask bytes, with a handful of integer operations per
-// byte, so it is limited by device memory (3.35 TB/s), never by compute.
+// Bound on the H100: bytes moved. Per row the kernel reads its W + tail
+// input bytes and writes W mask bytes, with a handful of integer
+// operations per byte, so it is limited by device memory (3.35 TB/s),
+// never by compute.
 //
 // Design: Pallas needed an explicit halo input because BlockSpecs cannot
-// overlap. Here each row is packed as (W + 16) bytes with a zero tail, so
-// every window starting in the row is in bounds and no halo exists. Each
-// thread produces 16 mask bytes: it loads its 16-byte chunk and the next
+// overlap. Here each row carries a zero tail of at least 16 bytes (the
+// row stride is W + 16 for batches, W + 128 for row-groups), so every
+// window starting in the row is in bounds and no halo exists. The Pallas
+// row-group grid's row grouping (a VMEM budget) has no counterpart: one
+// thread per 16 mask bytes covers any row count.
+//
+// Each thread produces 16 mask bytes: it loads its 16-byte chunk and the next
 // one as two uint4 (neighbouring threads on neighbouring addresses, fully
 // coalesced; the second load is the neighbour's first and hits cache),
 // then for each pattern byte j compares the 16 bytes window[j..j+15]
@@ -25,12 +32,14 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTail = 16;  // zero bytes after each packed row (MAX_PATTERN)
+constexpr int kBatchTail = 16;  // zero bytes after a batch row (MAX_PATTERN)
+constexpr int kGroupTail = 128;  // ... after a row-group row (ROWGROUP_PAD)
 
+// row_stride: bytes from one row of buf to the next (W + the zero tail).
 __global__ void __launch_bounds__(kThreads)
 pattern_scan_kernel(const uint8_t* __restrict__ buf, uint8_t* __restrict__ mask,
-                    int64_t rows, int64_t width, uint64_t pat_lo,
-                    uint64_t pat_hi, int pat_len) {
+                    int64_t rows, int64_t width, int64_t row_stride,
+                    uint64_t pat_lo, uint64_t pat_hi, int pat_len) {
   const int64_t vecs_per_row = width / 16;
   const int64_t total = rows * vecs_per_row;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
@@ -38,7 +47,7 @@ pattern_scan_kernel(const uint8_t* __restrict__ buf, uint8_t* __restrict__ mask,
        v < total; v += stride) {
     const int64_t r = v / vecs_per_row;
     const int64_t c = (v - r * vecs_per_row) * 16;
-    const uint8_t* src = buf + r * (width + kTail) + c;
+    const uint8_t* src = buf + r * row_stride + c;
     const uint4 a = *reinterpret_cast<const uint4*>(src);
     const uint4 b = *reinterpret_cast<const uint4*>(src + 16);
     const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
@@ -67,6 +76,26 @@ pattern_scan_kernel(const uint8_t* __restrict__ buf, uint8_t* __restrict__ mask,
   }
 }
 
+int launch(const void* buf, void* mask, int64_t rows, int64_t width,
+           int64_t row_stride, uint64_t pat_lo, uint64_t pat_hi, int pat_len,
+           void* stream) {
+  if (width <= 0 || width % 16 || pat_len < 1 || pat_len > 16 ||
+      reinterpret_cast<uintptr_t>(buf) % 16 ||
+      reinterpret_cast<uintptr_t>(mask) % 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t total = rows * (width / 16);
+  if (total > 0) {
+    int64_t blocks = (total + kThreads - 1) / kThreads;
+    if (blocks > (1 << 30)) blocks = 1 << 30;
+    pattern_scan_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(buf), static_cast<uint8_t*>(mask), rows,
+        width, row_stride, pat_lo, pat_hi, pat_len);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // buf: (rows, width + 16) uint8, mask: (rows, width) uint8, width % 16 == 0,
@@ -75,14 +104,19 @@ pattern_scan_kernel(const uint8_t* __restrict__ buf, uint8_t* __restrict__ mask,
 extern "C" int pattern_scan_batch(const void* buf, void* mask, int64_t rows,
                                   int64_t width, uint64_t pat_lo,
                                   uint64_t pat_hi, int pat_len, void* stream) {
-  const int64_t total = rows * (width / 16);
-  if (total > 0) {
-    int64_t blocks = (total + kThreads - 1) / kThreads;
-    if (blocks > (1 << 30)) blocks = 1 << 30;
-    pattern_scan_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(buf), static_cast<uint8_t*>(mask), rows,
-        width, pat_lo, pat_hi, pat_len);
+  return launch(buf, mask, rows, width, width + kBatchTail, pat_lo, pat_hi,
+                pat_len, stream);
+}
+
+// The row-group form: buf is (rows, stride) uint8 with stride == width + 128
+// (payload left-justified, zero tail), everything else as above.
+extern "C" int pattern_scan_rowgroup(const void* buf, void* mask, int64_t rows,
+                                     int64_t width, int64_t stride,
+                                     uint64_t pat_lo, uint64_t pat_hi,
+                                     int pat_len, void* stream) {
+  if (stride != width + kGroupTail) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch(buf, mask, rows, width, stride, pat_lo, pat_hi, pat_len,
+                stream);
 }

@@ -6,11 +6,13 @@ launch per half-step **width bucket**: a uniform batch costs a single
 launch, and one giant outlier cannot inflate every row to its width.
 Each row is packed with a ``MAX_PATTERN`` zero tail (the kernel's
 window reach), copied to the device, scanned, and the mask copied back
-and trimmed to the row's true length.
+and trimmed to the row's true length. ``find_pattern_mask_rowgroup``
+scans a row-group the columnar store already packed: one launch, no
+packing.
 
-Each bucket's time is split into host-to-device copy, kernel and
+Each launch's time is split into host-to-device copy, kernel and
 device-to-host copy, published as the
-``stage.find_pattern_mask_batch.{h2d,kernel,d2h}_us`` counters.
+``stage.<wrapper>.{h2d,kernel,d2h}_us`` counters.
 """
 from __future__ import annotations
 
@@ -20,13 +22,15 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch._device import resolve_device
-from repro_torch.kernels.bucketing import as_u8, bucket_width, quantize_count
+from repro_torch._device import resolve_device, to_device
+from repro_torch.kernels.bucketing import (as_u8, bucket_width,
+                                           check_rowgroup, quantize_count)
 from repro_torch.obs.kernels import record_dispatch
-from .pattern_scan import DEFAULT_BLOCK, MAX_PATTERN, pattern_scan_batch
+from .pattern_scan import (DEFAULT_BLOCK, MAX_PATTERN, pattern_scan_batch,
+                           pattern_scan_rowgroup)
 
 __all__ = ["count_matches", "find_pattern_mask", "find_pattern_mask_batch",
-           "find_pattern_positions"]
+           "find_pattern_mask_rowgroup", "find_pattern_positions"]
 
 
 def _check_pattern(pattern) -> tuple[np.ndarray, int]:
@@ -111,6 +115,61 @@ def find_pattern_mask_batch(bufs, pattern, *, block: int = DEFAULT_BLOCK,
         for row, i in enumerate(idxs):
             out[i] = _trim(masks[row], arrs[i].size, plen)
     return out
+
+
+def _trim_rows(masks: np.ndarray, lengths: np.ndarray, plens) -> np.ndarray:
+    """Vectorized :func:`_trim` over row-group masks: zero every position
+    whose match window would read past its row's true length."""
+    width = masks.shape[1]
+    last = np.maximum(lengths[:, None] - np.asarray(plens).reshape(-1, 1) + 1,
+                      0)
+    return np.where(np.arange(width)[None, :] < last, masks, 0)
+
+
+def find_pattern_mask_rowgroup(matrix, lengths, pattern, *, trim: bool = True,
+                               device="cuda") -> np.ndarray:
+    """Match masks over an **already-packed row-group** — one launch.
+
+    The columnar scan entry point: ``matrix`` is ``(B, width +
+    ROWGROUP_PAD)`` uint8 in the shared row-group layout (typically a
+    read-only view of a memory-mapped columnar store), ``lengths`` the
+    true payload lengths of the first ``len(lengths)`` rows (trailing
+    rows are padding). Only those live rows are copied to ``device`` and
+    scanned; no per-payload copy, re-bucketing or halo build. Returns a
+    ``(live, width)`` uint8 mask, trimmed per row exactly like
+    :func:`find_pattern_mask_batch` trims its outputs.
+
+    ``trim=False`` skips the per-row trim and hands back the raw kernel
+    output: positions past ``length - len(pattern) + 1`` may carry
+    padding artifacts the caller must filter out. The column-scan hot
+    path does exactly that on the compacted hit list.
+
+    No tensor built on ``matrix`` outlives the call, so a store can be
+    closed once the caller drops its own views.
+    """
+    pat_vec, plen = _check_pattern(pattern)
+    dev = resolve_device(device)
+    mat, lengths, width = check_rowgroup(matrix, lengths)
+    live = lengths.size
+    record_dispatch("find_pattern_mask_rowgroup", width=width, rows=live,
+                    padded_rows=live, useful_bytes=int(lengths.sum()))
+    t0 = time.perf_counter()
+    x = to_device(mat[:live], dev)
+    _sync(dev)
+    t1 = time.perf_counter()
+    masks = pattern_scan_rowgroup(x, pat_vec, plen)
+    _sync(dev)
+    t2 = time.perf_counter()
+    del x  # the CPU path's tensor is a view of ``matrix``
+    masks = masks.cpu().numpy()
+    t3 = time.perf_counter()
+    obs.registry().fold_counters({"h2d_us": int((t1 - t0) * 1e6),
+                                  "kernel_us": int((t2 - t1) * 1e6),
+                                  "d2h_us": int((t3 - t2) * 1e6)},
+                                 prefix="stage.find_pattern_mask_rowgroup.")
+    if not trim:
+        return masks
+    return _trim_rows(masks, lengths, plen)
 
 
 def find_pattern_mask(buf, pattern, *, block: int = DEFAULT_BLOCK,

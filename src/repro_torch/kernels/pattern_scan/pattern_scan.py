@@ -1,14 +1,19 @@
-"""Pattern-scan kernel: CUDA launch, plain PyTorch version, launch count.
+"""Pattern-scan kernel: CUDA launches, plain PyTorch versions, launch counts.
 
 For a pattern ``p`` of length P ≤ 16 the match mask of a padded byte
-matrix is ``mask[r, i] = AND_{j<P} buf[r, i + j] == p[j]``. Rows are
-packed as ``(B, W + MAX_PATTERN)`` with a zero tail, so every window
-starting in a row is in bounds and no halo input is needed (the Pallas
-kernel's halo existed only because its BlockSpecs could not overlap).
+matrix is ``mask[r, i] = AND_{j<P} buf[r, i + j] == p[j]``. Rows carry a
+zero tail, so every window starting in a row is in bounds and no halo
+input is needed (the Pallas kernel's halo existed only because its
+BlockSpecs could not overlap). Two layouts, one CUDA kernel:
 
-:func:`pattern_scan_batch` launches ``csrc/pattern_scan.cu`` for a CUDA
-tensor and uses :func:`pattern_scan_plain` for a CPU tensor; any other
-device raises. ``launches`` counts CUDA launches.
+* batches, ``(B, W + MAX_PATTERN)``: :func:`pattern_scan_batch`, plain
+  version :func:`pattern_scan_plain`, counted in ``launches``;
+* row-groups of the columnar store, ``(B, W + ROWGROUP_PAD)``:
+  :func:`pattern_scan_rowgroup`, plain version
+  :func:`pattern_scan_rowgroup_plain`, counted in ``rowgroup_launches``.
+
+Each entry point launches ``csrc/pattern_scan.cu`` for a CUDA tensor and
+uses its plain version for a CPU tensor; any other device raises.
 """
 from __future__ import annotations
 
@@ -17,23 +22,28 @@ import ctypes
 import numpy as np
 import torch
 
+from repro_torch.kernels.bucketing import ROWGROUP_PAD
+
 __all__ = ["DEFAULT_BLOCK", "MAX_PATTERN", "launches", "pattern_scan_batch",
-           "pattern_scan_plain"]
+           "pattern_scan_plain", "pattern_scan_rowgroup",
+           "pattern_scan_rowgroup_plain", "rowgroup_launches"]
 
 DEFAULT_BLOCK = 64 * 1024  # width-bucket granularity of whole-buffer scans
-MAX_PATTERN = 16           # longest pattern; also each row's zero tail
+MAX_PATTERN = 16           # longest pattern; also each batch row's zero tail
 
-launches = 0  # CUDA launches of the kernel in this process
+launches = 0           # CUDA launches of pattern_scan_batch in this process
+rowgroup_launches = 0  # CUDA launches of pattern_scan_rowgroup
 
 
-def _check(padded: torch.Tensor, pattern: np.ndarray, pat_len: int) -> int:
+def _check(padded: torch.Tensor, pattern: np.ndarray, pat_len: int,
+           tail: int) -> int:
     """Validate the kernel's inputs; returns the scanned width W."""
     if padded.dtype != torch.uint8 or padded.dim() != 2:
         raise ValueError("padded must be a 2-D uint8 tensor")
-    width = padded.shape[1] - MAX_PATTERN
+    width = padded.shape[1] - tail
     if width <= 0 or width % 16:
         raise ValueError(f"padded width {padded.shape[1]} must be "
-                         f"{MAX_PATTERN} plus a positive multiple of 16")
+                         f"{tail} plus a positive multiple of 16")
     if pattern.dtype != np.uint8 or pattern.shape != (MAX_PATTERN,):
         raise ValueError(f"pattern must be a ({MAX_PATTERN},) uint8 array")
     if not 0 < pat_len <= MAX_PATTERN:
@@ -41,26 +51,43 @@ def _check(padded: torch.Tensor, pattern: np.ndarray, pat_len: int) -> int:
     return width
 
 
-def pattern_scan_plain(padded: torch.Tensor, pattern: np.ndarray,
-                       pat_len: int) -> torch.Tensor:
-    """Plain PyTorch version: P shifted compares over the whole matrix."""
-    width = _check(padded, pattern, pat_len)
+def _plain(padded: torch.Tensor, pattern: np.ndarray, pat_len: int,
+           width: int) -> torch.Tensor:
+    """P shifted compares over the whole matrix."""
     acc = padded[:, :width] == int(pattern[0])
     for j in range(1, pat_len):
         acc &= padded[:, j:j + width] == int(pattern[j])
     return acc.to(torch.uint8)
 
 
-def _launch(padded: torch.Tensor, pattern: np.ndarray, pat_len: int,
-            width: int) -> torch.Tensor:
+def pattern_scan_plain(padded: torch.Tensor, pattern: np.ndarray,
+                       pat_len: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`pattern_scan_batch`."""
+    width = _check(padded, pattern, pat_len, MAX_PATTERN)
+    return _plain(padded, pattern, pat_len, width)
+
+
+def pattern_scan_rowgroup_plain(matrix: torch.Tensor, pattern: np.ndarray,
+                                pat_len: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`pattern_scan_rowgroup`."""
+    width = _check(matrix, pattern, pat_len, ROWGROUP_PAD)
+    return _plain(matrix, pattern, pat_len, width)
+
+
+def _launch(entry: str, padded: torch.Tensor, pattern: np.ndarray,
+            pat_len: int, width: int) -> torch.Tensor:
+    """Launch the C entry point ``entry`` of ``pattern_scan.cu``."""
     from repro_torch.kernels._build import library
 
     if not padded.is_contiguous() or padded.data_ptr() % 16:
         raise ValueError("padded must be contiguous and 16-byte aligned")
-    fn = library("pattern_scan").pattern_scan_batch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                   ctypes.c_int64, ctypes.c_uint64, ctypes.c_uint64,
-                   ctypes.c_int, ctypes.c_void_p]
+    fn = getattr(library("pattern_scan"), entry)
+    # the row-group entry also takes the row stride, after the width
+    stride = [padded.shape[1]] if entry == "pattern_scan_rowgroup" else []
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                    ctypes.c_int64] + [ctypes.c_int64] * len(stride)
+                   + [ctypes.c_uint64, ctypes.c_uint64, ctypes.c_int,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     rows = padded.shape[0]
     mask = torch.empty((rows, width), dtype=torch.uint8, device=padded.device)
@@ -68,13 +95,10 @@ def _launch(padded: torch.Tensor, pattern: np.ndarray, pat_len: int,
     hi = int.from_bytes(pattern[8:].tobytes(), "little")
     with torch.cuda.device(padded.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(padded.data_ptr(), mask.data_ptr(), rows, width, lo, hi,
-                 pat_len, stream)
+        err = fn(padded.data_ptr(), mask.data_ptr(), rows, width, *stride,
+                 lo, hi, pat_len, stream)
     if err:
-        raise RuntimeError(f"pattern_scan kernel launch failed: CUDA error "
-                           f"{err}")
-    global launches
-    launches += 1
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
     return mask
 
 
@@ -87,9 +111,33 @@ def pattern_scan_batch(padded: torch.Tensor, pattern: np.ndarray,
     pattern, ``pat_len`` its true length. Returns the ``(B, W)`` uint8
     mask on ``padded``'s device.
     """
-    width = _check(padded, pattern, pat_len)
+    width = _check(padded, pattern, pat_len, MAX_PATTERN)
     if padded.device.type == "cpu":
-        return pattern_scan_plain(padded, pattern, pat_len)
+        return _plain(padded, pattern, pat_len, width)
     if padded.device.type != "cuda":
         raise ValueError(f"unsupported device {padded.device}")
-    return _launch(padded, pattern, pat_len, width)
+    mask = _launch("pattern_scan_batch", padded, pattern, pat_len, width)
+    global launches
+    launches += 1
+    return mask
+
+
+def pattern_scan_rowgroup(matrix: torch.Tensor, pattern: np.ndarray,
+                          pat_len: int) -> torch.Tensor:
+    """Match mask over a packed row-group matrix — one launch.
+
+    ``matrix`` is ``(B, W + ROWGROUP_PAD)`` uint8 in the columnar store's
+    row-group layout (payload left-justified, zero tail; ``W % 16 == 0``);
+    ``pattern`` and ``pat_len`` as in :func:`pattern_scan_batch`. Returns
+    the ``(B, W)`` uint8 mask on ``matrix``'s device; positions past each
+    row's true length are the caller's to trim.
+    """
+    width = _check(matrix, pattern, pat_len, ROWGROUP_PAD)
+    if matrix.device.type == "cpu":
+        return _plain(matrix, pattern, pat_len, width)
+    if matrix.device.type != "cuda":
+        raise ValueError(f"unsupported device {matrix.device}")
+    mask = _launch("pattern_scan_rowgroup", matrix, pattern, pat_len, width)
+    global rowgroup_launches
+    rowgroup_launches += 1
+    return mask

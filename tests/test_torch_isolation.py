@@ -1,5 +1,6 @@
 """``repro_torch`` and ``chip_smoke.py`` run without JAX and without the
-reference package, and the port's entry points default to the GPU."""
+reference package (index build, CDX search, columnar derive and search),
+and the port's entry points default to the GPU."""
 import ast
 import os
 import subprocess
@@ -43,6 +44,15 @@ with IndexQueryService(index, device="cpu") as svc:
     (resp,) = svc.serve([QueryRequest(b"nginx/1.", top_k=100)])
 got = {(h.shard, h.offset): h.n_matches for h in resp.hits}
 assert got == full_scan_search(paths, b"nginx/1.") and got
+# the columnar slice: derive a store, serve through a store-backed engine
+from repro_torch.columnar import derive
+from repro_torch.index import QueryEngine
+store = derive(paths, f"{d}/c.repcol", device="cpu")
+engine = QueryEngine.from_store(store, device="cpu")
+with IndexQueryService(engine.index, engine=engine) as svc:
+    (resp,) = svc.serve([QueryRequest(b"nginx/1.", top_k=100)])
+assert {(h.shard, h.offset): h.n_matches for h in resp.hits} == got
+assert engine.stats["kernel_dispatches"] > 0
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")
        and sys.modules[m] is not None]
 assert not bad, bad
