@@ -1,11 +1,12 @@
 """End-to-end smoke run of ``repro_torch`` on one NVIDIA GPU (H100, sm_90a).
 
-Drives the port's two paths through their public entry points on the
-card — synthetic gzip corpus → ``build_index`` → ``IndexQueryService``
-literal and regex searches over CDX+seek, and the same corpus →
-``columnar.derive`` → ``QueryEngine.from_store`` → the same searches over
-the ``.repcol`` row-groups — and holds every kernel of both paths against
-its plain PyTorch version:
+Drives the port's paths through their public entry points on the card —
+synthetic gzip corpus → ``build_index`` → ``IndexQueryService`` literal
+and regex searches over CDX+seek; the same corpus → ``columnar.derive``
+→ ``QueryEngine.from_store`` → the same searches over the ``.repcol``
+row-groups; ``verify_index`` over the whole index; the sharded
+``ArchiveGateway`` serving the searches to concurrent clients — and
+holds every kernel of those paths against its plain PyTorch version:
 
 1. corpus: 4 gzip shards of ``CorpusSpec(n_pages=10_000, seed=i)`` written
    by 4 spawned processes before any CUDA work;
@@ -14,8 +15,10 @@ its plain PyTorch version:
 4. kernel checks: each kernel bit-identical to its plain version at the
    main path's shapes and edge cases, timed with CUDA events
    (``pattern_scan_batch``, ``digest_sig_partials_batch``,
-   ``pattern_scan_rowgroup``, and ``digest_signature_rowgroup``'s
-   sub-2048 widths);
+   ``pattern_scan_rowgroup``, ``digest_signature_rowgroup``'s sub-2048
+   widths, ``pattern_scan_batch_multi`` and
+   ``pattern_scan_rowgroup_multi`` with mixed pattern lengths and inert
+   pad rows, ``adler32_partials_batch`` with all-0xFF and empty rows);
 5. main path: ``build_index(device="cuda")``; every digest against
    ``zlib.adler32``, a seeded sample of signatures against
    ``signature_of``, and a ``save``/``load`` round trip;
@@ -27,10 +30,23 @@ its plain PyTorch version:
    row-group kernel checked on the store's widest row-group;
 8. columnar serve: ``IndexQueryService(engine=QueryEngine.from_store(
    store, device="cuda"))`` over phase 6's requests plus a ``time_range``
-   request, every hit list equal to the oracle and to phase 6's hits.
+   request, every hit list equal to the oracle and to phase 6's hits;
+9. verify: ``verify_index(device="cuda")`` over every record (all True),
+   over a copy with three seeded digests flipped (exactly those False),
+   and with ``check_signatures=True`` over a copy with one signature bit
+   flipped (exactly that row False); ``verify_digests_bulk`` over mixed
+   sha1/md5/crc32/adler32/malformed headers equal to ``verify_digest``
+   item by item;
+10. gateway: ``ArchiveGateway(index, shards=4, device="cuda")`` serving
+    8 client threads, each submitting phase 6's requests 4 times in a
+    seeded order; every hit list equal to phase 6's; then
+    ``find_pattern_masks_multi_rowgroup`` on the store's fullest
+    row-group of phase 8's dominant width with phase 8's patterns, equal
+    to ``find_pattern_mask_rowgroup`` once per pattern.
 
 The launch count of each kernel is set to 0 before each path (phases 5,
-6, 7, 8) and read after it; every kernel of a path must have launched.
+6, 7, 8, 9, 10) and read after it; every kernel of a path must have
+launched.
 
 Every phase raises on failure. The script prints a ``{"kernels": ...}``
 JSON line, the card's name and power limit, and as its last line
@@ -43,11 +59,13 @@ from __future__ import annotations
 
 import argparse
 import cProfile
+import importlib
 import json
 import pstats
 import shutil
 import subprocess
 import sys
+import threading
 import time
 import zlib
 from concurrent.futures import ProcessPoolExecutor
@@ -67,19 +85,33 @@ from repro_torch.core.warc import FastWARCIterator  # noqa: E402
 from repro_torch.data.synth import CorpusSpec, records_in, write_corpus  # noqa: E402
 from repro_torch.index import (  # noqa: E402
     CdxIndex, HeaderFilter, IndexQueryService, QueryEngine, QueryRequest,
-    build_index, full_scan_regex, full_scan_search)
+    RandomAccessReader, build_index, full_scan_regex, full_scan_search)
+from repro_torch.core.warc.checksum import (  # noqa: E402
+    block_digest, verify_digest, verify_digests_bulk)
+from repro_torch.index import verify_index  # noqa: E402
 from repro_torch.index.signature import signature_of  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.adler32 import adler32_batch  # noqa: E402
 from repro_torch.kernels.digest_sig import digest_sig as ds  # noqa: E402
 from repro_torch.kernels.digest_sig import digest_signature_rowgroup  # noqa: E402
 from repro_torch.kernels.pattern_scan import pattern_scan as ps  # noqa: E402
-from repro_torch.kernels.pattern_scan import find_pattern_mask_rowgroup  # noqa: E402
+from repro_torch.kernels.pattern_scan import (  # noqa: E402
+    find_pattern_mask_rowgroup, find_pattern_masks_multi,
+    find_pattern_masks_multi_rowgroup)
+from repro_torch.obs.export import render_stage_table  # noqa: E402
+from repro_torch.serve import ArchiveGateway  # noqa: E402
 
+# the kernel module (the package's ``adler32`` name is the checksum function)
+ad = importlib.import_module("repro_torch.kernels.adler32.adler32")
 N_SHARDS = 4
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (NVIDIA data sheet)
 SCALAR_OPS_PER_S = 67e12    # H100 SXM non-tensor 32-bit rate (data sheet)
 SIG_SAMPLE = 2048
 PAYLOAD_SAMPLE = 4096       # store payloads held against the source records
+DIGEST_SAMPLE = 2048        # records whose mixed digest headers phase 9 checks
+GW_SHARDS = 4               # gateway scheduler shards (phase 10)
+GW_CLIENTS = 8              # client threads, each submitting ...
+GW_REPEATS = 4              # ... phase 6's requests this many times
 PAD = 128                   # row-group zero tail (ROWGROUP_PAD)
 SLEEP_CYCLES = 4_000_000    # ~2 ms of device spin ahead of each timed call
 CDX_COLUMNS = ("shard_id", "offset", "comp_len", "uncomp_len", "rtype",
@@ -211,6 +243,21 @@ def rowgroup_cost(rows: int, width: int, plen: int) -> tuple[int, int]:
     """pattern_scan_rowgroup: read (rows, W+128) + pattern, write (rows, W);
     one compare and one AND per pattern byte per position."""
     return rows * (width + PAD) + 16 + rows * width, rows * width * 2 * plen
+
+
+def multi_cost(rows: int, width: int, tail: int,
+               lens: np.ndarray) -> tuple[int, int]:
+    """pattern_scan_{batch,rowgroup}_multi: read (rows, W+tail), the
+    (rows, 16) patterns and (rows,) int32 lengths, write (rows, W); one
+    compare and one AND per position per byte of each row's own pattern."""
+    return (rows * (width + tail) + rows * width + 17 * rows,
+            2 * width * int(np.asarray(lens, np.int64).sum()))
+
+
+def adler_cost(rows: int, width: int) -> tuple[int, int]:
+    """adler32_partials_batch: read (rows, W), write two (rows, W/2048)
+    int32 partials; per byte one add for S and one multiply-add for T."""
+    return rows * width + 8 * rows * (width // ad.BLOCK), rows * width * 3
 
 
 # -- phase 4 ---------------------------------------------------------------
@@ -376,6 +423,125 @@ def kernel_checks(results: dict) -> None:
     results["max_abs_err"] = err
     log(f"[kernels] every kernel output bit-identical to its plain version "
         f"(max |kernel - plain| = {err})")
+
+
+MULTI_PATTERNS = [b"W", b"WA", b"ARC", b"WARC", b"WARC/", b"WARC/1", b"WARC/1.",
+                  b"WARC/1.1", b"WARC/1.1\r", b"WARC/1.1\r\n",
+                  b"WARC/1.1\r\nW", b"WARC/1.1\r\nWA", b"WARC/1.1\r\nWAR",
+                  b"WARC/1.1\r\nWARC", b"WARC/1.1\r\nWARC-",
+                  b"WARC/1.1\r\nWARC-T"]  # lengths 1..16
+
+
+def multi_inputs(rng, rows: int, width: int, tail: int, live: int
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
+    """A (rows, W + tail) matrix whose first ``live`` rows each carry one
+    of the 16 patterns (lengths 1..16, cycling), planted at the start,
+    across a 16-byte chunk edge, at the last valid position and running
+    into the zero tail; row 0 all 0xFF when ``live`` > 1. Rows past
+    ``live`` are inert pad rows: all zero, pattern [1, 0, ...] of length
+    1. Returns the matrix, patterns and lengths on the card, and the
+    longest length."""
+    m = np.zeros((rows, width + tail), np.uint8)
+    m[:live, :width] = rng.choice(np.frombuffer(b"WARC/1.\r\n-T", np.uint8),
+                                  size=(live, width))
+    pats = np.zeros((rows, 16), np.uint8)
+    pats[live:, 0] = 1
+    lens = np.ones(rows, np.int32)
+    for r in range(live):
+        p = np.frombuffer(MULTI_PATTERNS[r % 16], np.uint8)
+        pats[r, :p.size] = p
+        lens[r] = p.size
+        for at in (0, 16 - 3, width - p.size, width - 5):
+            if 0 <= at < width:
+                end = min(at + p.size, width)
+                m[r, at:end] = p[:end - at]
+    if live > 1:
+        m[0, :width] = 0xFF
+    return (torch.from_numpy(m).cuda(), torch.from_numpy(pats).cuda(),
+            torch.from_numpy(lens).cuda(), int(lens.max()))
+
+
+def multi_checks(results: dict) -> None:
+    """pattern_scan_batch_multi and pattern_scan_rowgroup_multi on the card
+    against their plain versions: mixed pattern lengths 1..16 in one
+    launch, inert pad rows, an all-0xFF row, matches into the zero tail."""
+    rng = np.random.default_rng(SEED + 3)
+    err = {"pattern_scan_batch_multi": 0, "pattern_scan_rowgroup_multi": 0}
+    cases = (("pattern_scan_batch_multi", ps.pattern_scan_batch_multi,
+              ps.pattern_scan_multi_plain, 16,
+              ((1, 1, 8192), (3, 2, 8192), (48, 40, 8192), (12, 9, 24576),
+               (6, 5, 65536))),
+             ("pattern_scan_rowgroup_multi", ps.pattern_scan_rowgroup_multi,
+              ps.pattern_scan_rowgroup_multi_plain, PAD,
+              ((1, 1, 256), (3, 2, 1536), (1024, 1000, 2048),
+               (675, 675, 12288))))
+    for name, kernel, plain, tail, shapes in cases:
+        for rows, live, width in shapes:
+            x, p, n, max_len = multi_inputs(rng, rows, width, tail, live)
+            got = kernel(x, p, n, max_len)
+            want = plain(x, p, n, max_len)
+            torch.cuda.synchronize()
+            d = int((got.int() - want.int()).abs().max())
+            err[name] = max(err[name], d)
+            if d or not int(want[:live].sum()) or int(want[live:].sum()):
+                raise RuntimeError(
+                    f"{name} B={rows} live={live} W={width}: max |kernel - "
+                    f"plain| = {d}, plain matches {int(want.sum())}")
+        ms = time_ms(lambda: kernel(x, p, n, max_len))
+        pms = time_ms(lambda: plain(x, p, n, max_len), 20)
+        b, _ = bound(*multi_cost(rows, width, tail, n.cpu().numpy()))
+        log(f"[kernels] {name} B={rows} W={width} P=1..16: {ms:.4g} "
+            f"ms/launch, bound {b:.4g} ms, plain {pms:.4g} ms")
+    results["max_abs_err"].update(err)
+    log(f"[kernels] per-row-pattern scans bit-identical to their plain "
+        f"versions (max |kernel - plain| = {err})")
+
+
+def adler_inputs(rng, rows: int, width: int) -> torch.Tensor:
+    """(rows, W) payload rows of random length, zero-padded; row 0 all
+    0xFF (the largest T of every block), the last row empty."""
+    m = np.zeros((rows, width), np.uint8)
+    for r in range(rows - 1):
+        n = int(rng.integers(1, width + 1))
+        m[r, :n] = rng.integers(0, 256, n, dtype=np.uint8)
+    m[0] = 0xFF
+    if rows > 1:
+        m[-1] = 0
+    return torch.from_numpy(m).cuda()
+
+
+def adler_checks(results: dict) -> None:
+    """adler32_partials_batch on the card against its plain version, and
+    adler32_batch against zlib, at W = 2048 up to 1 MiB."""
+    rng = np.random.default_rng(SEED + 4)
+    err = 0
+    for rows, width in ((1, 2048), (6, 2048), (512, 8192), (64, 65536),
+                        (3, 1 << 20)):
+        x = adler_inputs(rng, rows, width)
+        got = ad.adler32_partials_batch(x)
+        want = ad.adler32_plain(x)
+        torch.cuda.synchronize()
+        d = max(int((g.long() - w.long()).abs().max())
+                for g, w in zip(got, want))
+        err = max(err, d)
+        if d:
+            raise RuntimeError(f"adler32 B={rows} W={width}: max |kernel - "
+                               f"plain| = {d}")
+    ms = time_ms(lambda: ad.adler32_partials_batch(x))
+    pms = time_ms(lambda: ad.adler32_plain(x), 20)
+    b, _ = bound(*adler_cost(rows, width))
+    log(f"[kernels] adler32 B={rows} W={width}: {ms:.4g} ms/launch, bound "
+        f"{b:.4g} ms, plain {pms:.4g} ms")
+    bufs = [b"", b"\xff" * 2048, b"\xff" * 5000, b"a"] + [
+        rng.integers(0, 256, int(n), dtype=np.uint8).tobytes()
+        for n in rng.integers(0, 40_000, 200)]
+    got = adler32_batch(bufs, device="cuda")
+    if [int(g) for g in got] != [zlib.adler32(b) for b in bufs]:
+        raise RuntimeError("adler32_batch on the card != zlib.adler32")
+    results["max_abs_err"]["adler32"] = err
+    log(f"[kernels] adler32 bit-identical to its plain version (max "
+        f"|kernel - plain| = {err}); adler32_batch == zlib.adler32 on "
+        f"{len(bufs)} payloads incl. empty and all-0xFF")
 
 
 def dominant_shape(kernel: str) -> tuple[int, int]:
@@ -681,16 +847,264 @@ def profile_broad(store: ColumnStore, results: dict) -> None:
         log(f"[profile]   {tt:8.4f} {ct:8.4f}  {name}")
 
 
+# -- phase 9 ---------------------------------------------------------------
+def flipped_copy(index: CdxIndex, cdx: Path, digest_rows=(),
+                 sig_rows=()) -> CdxIndex:
+    """A fresh load of the saved index with the given rows' digests, and
+    the first signature word of ``sig_rows``, flipped in one bit."""
+    out = CdxIndex.load(str(cdx))
+    out.digest = out.digest.copy()
+    out.digest[list(digest_rows)] ^= 1
+    out.signatures = out.signatures.copy()
+    out.signatures[list(sig_rows), 0] ^= np.uint64(1)
+    return out
+
+
+def verify_phase(index: CdxIndex, workdir: Path, results: dict) -> None:
+    n = len(index)
+    obs.reset()
+    ad.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ok = verify_index(index, device="cuda")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    results["adler32_launches"] = ad.launches
+    if len(ok) != n or not all(ok):
+        raise RuntimeError(f"verify_index: {ok.count(False)} of {len(ok)} "
+                           f"records failed on an intact index")
+    c = obs.snapshot().counters
+    split = {k: c.get(f"stage.adler32_batch.{k}_us", 0) / 1e6
+             for k in ("h2d", "kernel", "d2h")}
+    results["adler32_shape"] = dominant_shape("adler32_batch")
+    log(f"[verify] verify_index: all {n} records True in {dt:.3f} s = "
+        f"{n / dt:.1f} records/s; {ad.launches} adler32 launches; "
+        f"adler32_batch split (s): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+        + f"; peak device memory {peak} bytes")
+
+    rng = np.random.default_rng(SEED + 5)
+    flips = sorted(rng.choice(n, 3, replace=False).tolist())
+    t1 = time.perf_counter()
+    bad = verify_index(flipped_copy(index, workdir / "corpus.cdx", flips),
+                       device="cuda")
+    dt_flip = time.perf_counter() - t1
+    if [i for i, v in enumerate(bad) if not v] != flips:
+        raise RuntimeError(f"verify_index with digests {flips} flipped "
+                           f"returned False at "
+                           f"{[i for i, v in enumerate(bad) if not v]}")
+    log(f"[verify] digests of rows {flips} flipped: exactly those False "
+        f"({dt_flip:.3f} s)")
+
+    sig_row = int(rng.integers(n))
+    ds.launches = 0
+    obs.reset()
+    t2 = time.perf_counter()
+    sig_ok = verify_index(flipped_copy(index, workdir / "corpus.cdx",
+                                       sig_rows=[sig_row]),
+                          check_signatures=True, device="cuda")
+    torch.cuda.synchronize()
+    dt_sig = time.perf_counter() - t2
+    results["verify_digest_sig_launches"] = ds.launches
+    if [i for i, v in enumerate(sig_ok) if not v] != [sig_row]:
+        raise RuntimeError(f"verify_index(check_signatures=True) with the "
+                           f"signature of row {sig_row} flipped returned "
+                           f"False at "
+                           f"{[i for i, v in enumerate(sig_ok) if not v]}")
+    c = obs.snapshot().counters
+    sig_split = {k: c.get(f"stage.digest_signature_batch.{k}_us", 0) / 1e6
+                 for k in ("h2d", "kernel", "d2h", "fold")}
+    log(f"[verify] check_signatures=True over all {n} records: every "
+        f"digest and signature True but row {sig_row}'s flipped signature "
+        f"bit, {dt_sig:.3f} s = {n / dt_sig:.1f} records/s; {ds.launches} "
+        f"digest_sig launches; split (s): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sig_split.items()))
+
+    # verify_digests_bulk on mixed headers == verify_digest item by item
+    datas, headers = [], []
+    readers = {}
+    for k, row in enumerate(sorted(rng.choice(n, min(DIGEST_SAMPLE, n),
+                                              replace=False).tolist())):
+        sid = int(index.shard_id[row])
+        if sid not in readers:
+            readers[sid] = RandomAccessReader(index.shard_paths[sid],
+                                              parse_http=False)
+        d = readers[sid].read(int(index.offset[row])).content
+        datas.append(d)
+        headers.append([
+            block_digest(d, "sha1"), block_digest(d, "md5"),
+            block_digest(d, "crc32"), block_digest(d, "adler32"),
+            f"adler32:{zlib.adler32(d) ^ (1 << (k % 8 + 3)):08x}",
+            "adler32:not-hex", "sha1:" + "A" * 32, "crc32:zz"][k % 8])
+    for reader in readers.values():
+        reader.close()
+    got = verify_digests_bulk(datas, headers, device="cuda")
+    want = [verify_digest(d, h) for d, h in zip(datas, headers)]
+    if got != want or sum(want) != sum(1 for i in range(len(datas))
+                                       if i % 8 < 4):
+        raise RuntimeError("verify_digests_bulk != verify_digest on mixed "
+                           "headers")
+    results["verify"] = {
+        "records": n, "seconds": dt, "records_per_s": n / dt,
+        "adler32_launches": results["adler32_launches"],
+        "adler32_split_s": split, "peak_device_bytes": peak,
+        "flipped_rows": flips, "flipped_seconds": dt_flip,
+        "signatures_seconds": dt_sig, "signatures_split_s": sig_split,
+        "signature_flipped_row": sig_row,
+        "digest_sig_launches": results["verify_digest_sig_launches"]}
+    log(f"[verify] verify_digests_bulk == verify_digest on {len(datas)} "
+        f"records with sha1/md5/crc32/adler32/wrong/malformed headers")
+
+
+# -- phase 10 --------------------------------------------------------------
+def gateway_phase(index: CdxIndex, checked: dict, results: dict) -> None:
+    labels = {id(r): label for label, r in REQUESTS}
+    rng = np.random.default_rng(SEED + 6)
+    orders = [rng.permutation(len(REQUESTS) * GW_REPEATS) % len(REQUESTS)
+              for _ in range(GW_CLIENTS)]
+    obs.reset()
+    ps.multi_launches = 0
+    responses: list = []
+    lock = threading.Lock()
+    errors: list = []
+    t0 = time.perf_counter()
+    with ArchiveGateway(index, shards=GW_SHARDS, device="cuda") as gw:
+        def client(order) -> None:
+            try:
+                futs = [(REQUESTS[i][1], gw.submit(REQUESTS[i][1]))
+                        for i in order]
+                done = [(req, f.result(600)) for req, f in futs]
+                with lock:
+                    responses.extend(done)
+            except BaseException as exc:  # re-raised below
+                errors.append(exc)
+
+        threads = [threading.Thread(target=client, args=(o,))
+                   for o in orders]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(900)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        snap = gw.metrics.snapshot(gw.cache)
+    if errors or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"gateway clients failed: {errors[:1]}")
+    results["multi_launches"] = ps.multi_launches
+    want = GW_CLIENTS * GW_REPEATS * len(REQUESTS)
+    if len(responses) != want or snap["responses"] != want:
+        raise RuntimeError(f"gateway resolved {len(responses)} of {want}")
+    for req, resp in responses:
+        oracle, keys = checked[labels[id(req)]]
+        if hit_keys(resp.hits) != keys or resp.total_matches != len(oracle):
+            raise RuntimeError(f"gateway request {labels[id(req)]!r}: hits "
+                               f"differ from phase 6's")
+    lat = sorted(r.latency_s for _, r in responses)
+    c = obs.snapshot().counters
+    split = {k: c.get(f"stage.find_pattern_masks_multi.{k}_us", 0) / 1e6
+             for k in ("h2d", "kernel", "d2h")}
+    results["gateway_shape"] = dominant_shape("find_pattern_masks_multi")
+    keep = ("requests", "responses", "coalesced", "unique_scans",
+            "scan_batches", "kernel_dispatches", "dispatches_per_request",
+            "records_scanned", "records_fetched", "host_scans",
+            "latency_p50_ms", "latency_p99_ms", "cache_hit_rate", "errors")
+    results["gateway"] = {
+        "submissions": want, "seconds": dt, "requests_per_s": want / dt,
+        "metrics": {k: snap[k] for k in keep},
+        "stages": snap.get("stages", {}), "scan_split_s": split,
+        "multi_launches": ps.multi_launches}
+    log(f"[gateway] {GW_SHARDS} shards, {GW_CLIENTS} clients x "
+        f"{GW_REPEATS} x {len(REQUESTS)} requests = {want} submissions in "
+        f"{dt:.3f} s = {want / dt:.2f} requests/s; every hit list == phase "
+        f"6's; latency p50 {snap['latency_p50_ms']:.3f} ms, p99 "
+        f"{snap['latency_p99_ms']:.3f} ms (responses: p50 "
+        f"{lat[len(lat) // 2] * 1e3:.3f} ms); coalesced "
+        f"{snap['coalesced']}, unique scans {snap['unique_scans']}, "
+        f"kernel_dispatches {snap['kernel_dispatches']}, "
+        f"dispatches_per_request {snap['dispatches_per_request']:.4f}, "
+        f"cache hit rate {snap['cache_hit_rate']:.4f}; "
+        f"{ps.multi_launches} pattern_scan_batch_multi launches; scan split "
+        f"(s): " + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    for line in render_stage_table(snap.get("stages", {})).splitlines():
+        log(f"[gateway]   {line}")
+    if min(snap["coalesced"], snap["kernel_dispatches"],
+           ps.multi_launches) <= 0:
+        raise RuntimeError("the gateway neither coalesced nor launched")
+
+
+def rowgroup_multi_phase(store: ColumnStore, results: dict) -> None:
+    """find_pattern_masks_multi_rowgroup on the store's fullest row-group
+    of phase 8's dominant width, phase 8's kernel patterns assigned to its
+    rows in turn, against find_pattern_mask_rowgroup once per pattern."""
+    engine = QueryEngine.from_store(store, device="cuda")
+    pats = []
+    for _, req in REQUESTS:
+        plan = (engine.plan_regex(req.pattern) if req.regex
+                else engine.plan(req.pattern))
+        if plan.kernel_pattern is not None and plan.kernel_pattern not in pats:
+            pats.append(plan.kernel_pattern)
+    _, gwidth = results["rowgroup_shape"]
+    g = int(max(np.flatnonzero(store.rg_width == gwidth),
+                key=lambda i: int(store.rg_rows[i])))
+    matrix, _, lens = store.rowgroup(g)
+    row_pats = [pats[i % len(pats)] for i in range(lens.size)]
+    ps.rowgroup_multi_launches = 0
+    got = find_pattern_masks_multi_rowgroup(matrix, lens, row_pats,
+                                            device="cuda")
+    results["rowgroup_multi_launches"] = ps.rowgroup_multi_launches
+    for j, p in enumerate(pats):
+        want = find_pattern_mask_rowgroup(matrix, lens, p, device="cuda")
+        rows = np.arange(j, lens.size, len(pats))
+        if not np.array_equal(got[rows], want[rows]):
+            raise RuntimeError(f"find_pattern_masks_multi_rowgroup on "
+                               f"row-group {g}, pattern {p!r}: != "
+                               f"find_pattern_mask_rowgroup")
+    del matrix
+    results["rowgroup_multi_group"] = [g, int(lens.size), gwidth]
+    log(f"[gateway] find_pattern_masks_multi_rowgroup on row-group {g} "
+        f"({lens.size} rows x W={gwidth}, {len(pats)} patterns of lengths "
+        f"{sorted(len(p) for p in pats)}): == find_pattern_mask_rowgroup "
+        f"per pattern, {int(got.sum())} matches, "
+        f"{results['rowgroup_multi_launches']} launch")
+
+
+def timed_err(name: str, kernel, plain) -> int:
+    """max |kernel - plain| on the inputs the kernels line times; raises
+    unless the two agree exactly."""
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    d = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+    if d:
+        raise RuntimeError(f"{name} at its timed shape: max |kernel - "
+                           f"plain| = {d}")
+    return d
+
+
 def kernel_line(results: dict, store: ColumnStore) -> dict:
+    """Each kernel at its main path's dominant shape: checked against its
+    plain version on the very inputs it is then timed on."""
     rng = np.random.default_rng(SEED + 1)
+    err = dict(results["max_abs_err"])
+
+    def agree(name, kernel, plain):
+        err[name] = max(err[name], timed_err(name, kernel, plain))
+
     rows, width = results["pattern_scan_shape"]
     x, pat = scan_inputs(rng, rows, width)
+    agree("pattern_scan", lambda: ps.pattern_scan_batch(x, pat, 16),
+          lambda: ps.pattern_scan_plain(x, pat, 16))
     ms = time_ms(lambda: ps.pattern_scan_batch(x, pat, 16))
     plain = time_ms(lambda: ps.pattern_scan_plain(x, pat, 16), 20)
     b_scan, by_scan = bound(*scan_cost(rows, width, 16))
     drows, dwidth = results["digest_sig_shape"]
     kblock = min(ds.BLOCK, dwidth)
     y = digest_inputs(rng, drows, dwidth)
+    agree("digest_sig", lambda: ds.digest_sig_partials_batch(
+        y, n=4, block=kblock), lambda: ds.digest_sig_plain(
+        y, n=4, block=kblock))
     dms = time_ms(lambda: ds.digest_sig_partials_batch(y, n=4, block=kblock))
     dplain = time_ms(lambda: ds.digest_sig_plain(y, n=4, block=kblock), 20)
     b_dig, by_dig = bound(*digest_cost(drows, dwidth, kblock, 4))
@@ -703,15 +1117,67 @@ def kernel_line(results: dict, store: ColumnStore) -> dict:
     z = torch.from_numpy(np.array(matrix[:lens.size])).cuda()
     del matrix
     zpat = np.frombuffer(b"nginx/1.25\r\nDate", np.uint8)
+    agree("pattern_scan_rowgroup",
+          lambda: ps.pattern_scan_rowgroup(z, zpat, 16),
+          lambda: ps.pattern_scan_rowgroup_plain(z, zpat, 16))
     gms = time_ms(lambda: ps.pattern_scan_rowgroup(z, zpat, 16))
     gplain = time_ms(lambda: ps.pattern_scan_rowgroup_plain(z, zpat, 16), 20)
     b_grp, by_grp = bound(*rowgroup_cost(lens.size, gwidth, 16))
+    # the gateway's multi-pattern scan at its dominant bucket: mixed
+    # pattern lengths 1..16, a quarter of the rows inert padding
+    mrows, mwidth = results["gateway_shape"]
+    mx, mp, mn, mlen = multi_inputs(rng, mrows, mwidth, 16,
+                                    max(1, mrows - mrows // 4))
+    agree("pattern_scan_batch_multi",
+          lambda: ps.pattern_scan_batch_multi(mx, mp, mn, mlen),
+          lambda: ps.pattern_scan_multi_plain(mx, mp, mn, mlen))
+    mms = time_ms(lambda: ps.pattern_scan_batch_multi(mx, mp, mn, mlen))
+    mplain = time_ms(lambda: ps.pattern_scan_multi_plain(mx, mp, mn, mlen),
+                     20)
+    b_mul, by_mul = bound(*multi_cost(mrows, mwidth, 16, mn.cpu().numpy()))
+    # the row-group twin on phase 10's row-group: phase 8's patterns in turn
+    g, grows, _ = results["rowgroup_multi_group"]
+    engine = QueryEngine.from_store(store, device="cuda")
+    pats = []
+    for _, req in REQUESTS:
+        plan = (engine.plan_regex(req.pattern) if req.regex
+                else engine.plan(req.pattern))
+        if plan.kernel_pattern is not None and plan.kernel_pattern not in pats:
+            pats.append(plan.kernel_pattern)
+    matrix, _, _ = store.rowgroup(g)
+    gx = torch.from_numpy(np.array(matrix[:grows])).cuda()
+    del matrix
+    gp = np.zeros((grows, 16), np.uint8)
+    gn = np.zeros(grows, np.int32)
+    for r in range(grows):
+        p = pats[r % len(pats)]
+        gp[r, :len(p)] = np.frombuffer(p, np.uint8)
+        gn[r] = len(p)
+    gp_t, gn_t = torch.from_numpy(gp).cuda(), torch.from_numpy(gn).cuda()
+    glen = int(gn.max())
+    agree("pattern_scan_rowgroup_multi",
+          lambda: ps.pattern_scan_rowgroup_multi(gx, gp_t, gn_t, glen),
+          lambda: ps.pattern_scan_rowgroup_multi_plain(gx, gp_t, gn_t,
+                                                       glen))
+    rms = time_ms(lambda: ps.pattern_scan_rowgroup_multi(gx, gp_t, gn_t,
+                                                         glen))
+    rplain = time_ms(lambda: ps.pattern_scan_rowgroup_multi_plain(
+        gx, gp_t, gn_t, glen), 20)
+    b_rmul, by_rmul = bound(*multi_cost(grows, gwidth, PAD, gn))
+    # adler32 at verify's dominant width bucket
+    arows, awidth = results["adler32_shape"]
+    ax = adler_inputs(rng, arows, awidth)
+    agree("adler32", lambda: ad.adler32_partials_batch(ax),
+          lambda: ad.adler32_plain(ax))
+    ams = time_ms(lambda: ad.adler32_partials_batch(ax))
+    aplain = time_ms(lambda: ad.adler32_plain(ax), 20)
+    b_ad, by_ad = bound(*adler_cost(arows, awidth))
     return {"kernels": [
         {"name": "pattern_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/pattern_scan/csrc/pattern_scan.cu",
          "replaces": "src/repro/kernels/pattern_scan/pattern_scan.py:122",
          "launches": results["pattern_scan_launches"],
-         "max_abs_err": results["max_abs_err"]["pattern_scan"],
+         "max_abs_err": err["pattern_scan"],
          "ms": ms, "plain_ms": plain, "bound_ms": b_scan,
          "bound_by": by_scan, "library_ms": None,
          "shape": [rows, width + 16], "pattern_len": 16},
@@ -719,22 +1185,49 @@ def kernel_line(results: dict, store: ColumnStore) -> dict:
          "source": "src/repro_torch/kernels/digest_sig/csrc/digest_sig.cu",
          "replaces": "src/repro/kernels/digest_sig/digest_sig.py:84",
          "launches": (results["digest_sig_launches"]
-                      + results["derive_digest_sig_launches"]),
-         "max_abs_err": results["max_abs_err"]["digest_sig"],
+                      + results["derive_digest_sig_launches"]
+                      + results["verify_digest_sig_launches"]),
+         "max_abs_err": err["digest_sig"],
          "ms": dms, "plain_ms": dplain, "bound_ms": b_dig,
          "bound_by": by_dig, "library_ms": None,
          "shape": [drows, dwidth + 128],
          "launches_by_phase": {
              "build": results["digest_sig_launches"],
-             "derive": results["derive_digest_sig_launches"]}},
+             "derive": results["derive_digest_sig_launches"],
+             "verify": results["verify_digest_sig_launches"]}},
         {"name": "pattern_scan_rowgroup", "route": "cuda",
          "source": "src/repro_torch/kernels/pattern_scan/csrc/pattern_scan.cu",
          "replaces": "src/repro/kernels/pattern_scan/pattern_scan.py:185",
          "launches": results["rowgroup_launches"],
-         "max_abs_err": results["max_abs_err"]["pattern_scan_rowgroup"],
+         "max_abs_err": err["pattern_scan_rowgroup"],
          "ms": gms, "plain_ms": gplain, "bound_ms": b_grp,
          "bound_by": by_grp, "library_ms": None,
          "shape": [int(lens.size), gwidth + PAD], "pattern_len": 16},
+        {"name": "pattern_scan_batch_multi", "route": "cuda",
+         "source": "src/repro_torch/kernels/pattern_scan/csrc/pattern_scan.cu",
+         "replaces": "src/repro/kernels/pattern_scan/pattern_scan.py:84",
+         "launches": results["multi_launches"],
+         "max_abs_err": err["pattern_scan_batch_multi"],
+         "ms": mms, "plain_ms": mplain, "bound_ms": b_mul,
+         "bound_by": by_mul, "library_ms": None,
+         "shape": [mrows, mwidth + 16], "pattern_lens": "1..16"},
+        {"name": "pattern_scan_rowgroup_multi", "route": "cuda",
+         "source": "src/repro_torch/kernels/pattern_scan/csrc/pattern_scan.cu",
+         "replaces": "src/repro/kernels/pattern_scan/pattern_scan.py:216",
+         "launches": results["rowgroup_multi_launches"],
+         "max_abs_err": err["pattern_scan_rowgroup_multi"],
+         "ms": rms, "plain_ms": rplain, "bound_ms": b_rmul,
+         "bound_by": by_rmul, "library_ms": None,
+         "shape": [grows, gwidth + PAD],
+         "pattern_lens": sorted({len(p) for p in pats})},
+        {"name": "adler32", "route": "cuda",
+         "source": "src/repro_torch/kernels/adler32/csrc/adler32.cu",
+         "replaces": "src/repro/kernels/adler32/adler32.py:51",
+         "launches": results["adler32_launches"],
+         "max_abs_err": err["adler32"],
+         "ms": ams, "plain_ms": aplain, "bound_ms": b_ad,
+         "bound_by": by_ad, "library_ms": None,
+         "shape": [arows, awidth]},
     ]}
 
 
@@ -772,21 +1265,33 @@ def main() -> int:
 
     kernel_checks(results)
     rowgroup_checks(results)
+    multi_checks(results)
+    adler_checks(results)
     index = main_build(paths, workdir, results)
     checked = serve(index, paths, results)
     store, stamps = derive_phase(paths, workdir, index, results)
     columnar_serve(store, stamps, checked, results)
+    profile_broad(store, results)
+    verify_phase(index, workdir, results)
+    gateway_phase(index, checked, results)
+    rowgroup_multi_phase(store, results)
 
     launches = {"digest_sig (build)": results["digest_sig_launches"],
                 "pattern_scan (serve)": results["pattern_scan_launches"],
                 "digest_sig (derive)": results["derive_digest_sig_launches"],
                 "pattern_scan_rowgroup (columnar serve)":
-                    results["rowgroup_launches"]}
+                    results["rowgroup_launches"],
+                "adler32 (verify)": results["adler32_launches"],
+                "digest_sig (verify, check_signatures)":
+                    results["verify_digest_sig_launches"],
+                "pattern_scan_batch_multi (gateway)":
+                    results["multi_launches"],
+                "pattern_scan_rowgroup_multi (gateway, row-group)":
+                    results["rowgroup_multi_launches"]}
     log(f"[launches] main paths: {launches}")
     if min(launches.values()) <= 0:
         raise RuntimeError("a kernel of a main path was never launched")
 
-    profile_broad(store, results)
     line = kernel_line(results, store)
     store.close()
     results.update(line)

@@ -8,6 +8,9 @@
    other header fields are scanned off the raw block on demand, record
    content is a zero-copy ``memoryview``, HTTP parsing only when
    requested.
+3. **Digest checks on read** (``verify_digests=True``) — the record's
+   ``WARC-Block-Digest`` / ``WARC-Payload-Digest`` headers checked on the
+   host (:func:`~.checksum.verify_digest`).
 
 Covers gzip and uncompressed WARCs. LZ4 and zstd shards raise
 :class:`NotImplementedError`.
@@ -20,6 +23,7 @@ from typing import BinaryIO, Iterator
 
 from repro_torch import obs
 
+from .checksum import verify_digest
 from .errors import RecordReadError
 from .http import parse_http_fast
 from .record import (
@@ -30,6 +34,7 @@ from .record import (
     UNKNOWN_TYPE_VALUE,
     WARC_MAGIC,
     WarcRecord,
+    scan_header_field,
     scan_header_field_in,
 )
 from .streams import (
@@ -55,7 +60,7 @@ def _type_value(type_raw: bytes | None) -> int:
 
 
 class FastWARCIterator:
-    """Iterate WARC records with lazy HTTP parsing.
+    """Iterate WARC records with lazy HTTP parsing and optional digests.
 
     Parameters
     ----------
@@ -64,6 +69,10 @@ class FastWARCIterator:
         WARC file.
     parse_http:
         parse HTTP headers of ``application/http`` payloads on yield.
+    verify_digests:
+        verify ``WARC-Block-Digest`` / ``WARC-Payload-Digest`` and record
+        the outcome on ``verified_block_digest`` /
+        ``verified_payload_digest`` (``None`` where the header is absent).
     readahead:
         gzip only: inflate members on a decoder thread
         (:class:`~.streams.ReadaheadDecoder`) ahead of the parser through
@@ -77,6 +86,7 @@ class FastWARCIterator:
     """
 
     def __init__(self, source: BinaryIO | str, *, parse_http: bool = True,
+                 verify_digests: bool = False,
                  readahead: bool | None = None) -> None:
         self._owned_file: BinaryIO | None = None
         if isinstance(source, str):
@@ -84,6 +94,7 @@ class FastWARCIterator:
             self._owned_file = source
         self._raw = source
         self.parse_http = parse_http
+        self.verify_digests = verify_digests
         self.readahead = readahead
         self._decoder: ReadaheadDecoder | None = None
         self.copy_stats = CopyStats()
@@ -162,11 +173,21 @@ class FastWARCIterator:
         """Assemble a record from its raw header block."""
         record = WarcRecord(header_block, RECORD_TYPE_FROM_VALUE[type_value],
                             content, offset, stats=self.copy_stats)
+        if self.verify_digests:
+            bd = scan_header_field(header_block, b"WARC-Block-Digest:")
+            if bd is not None:
+                record.verified_block_digest = verify_digest(
+                    record.content_view(), bd.decode("latin-1"))
         if self.parse_http and (type_value & HTTP_TYPE_MASK) and \
                 record.is_http:
             http, body_off = parse_http_fast(record.content_view())
             record.http_headers = http
             record.http_content_offset = body_off if http is not None else -1
+            if self.verify_digests and http is not None:
+                pd = scan_header_field(header_block, b"WARC-Payload-Digest:")
+                if pd is not None:
+                    record.verified_payload_digest = verify_digest(
+                        record.payload_view(), pd.decode("latin-1"))
         self.records_yielded += 1
         return record
 
@@ -292,6 +313,7 @@ class FastWARCIterator:
 
 
 def read_record_at(source, offset: int, *, parse_http: bool = True,
+                   verify_digests: bool = False,
                    shard: str | None = None) -> WarcRecord:
     """Parse exactly one record at absolute ``offset`` in ``source``.
 
@@ -310,11 +332,12 @@ def read_record_at(source, offset: int, *, parse_http: bool = True,
             shard = os.fspath(source)
         with open(source, "rb") as f:
             return read_record_at(f, offset, parse_http=parse_http,
-                                  shard=shard)
+                                  verify_digests=verify_digests, shard=shard)
     try:
         source.seek(offset)
         # readahead off: one member is parsed and the iterator abandoned
         it = FastWARCIterator(source, parse_http=parse_http,
+                              verify_digests=verify_digests,
                               readahead=False)
         record = it.read_one()
     except (OSError, RecordReadError, NotImplementedError):

@@ -168,6 +168,8 @@ class WarcRecord:
         "http_headers",
         "http_content_offset",
         "stream_offset",
+        "verified_block_digest",
+        "verified_payload_digest",
     )
 
     def __init__(self, header_block: bytes, record_type: WarcRecordType,
@@ -181,6 +183,10 @@ class WarcRecord:
         self.http_headers: HttpHeaderMap | None = None
         self.http_content_offset = -1
         self.stream_offset = stream_offset
+        # digest checks on read (``verify_digests=True``): None when the
+        # record carries no such header or was not verified
+        self.verified_block_digest: bool | None = None
+        self.verified_payload_digest: bool | None = None
 
     @property
     def content(self) -> bytes:
@@ -199,6 +205,16 @@ class WarcRecord:
         if isinstance(self._content, memoryview):
             return self._content
         return memoryview(self._content)
+
+    def payload_view(self) -> memoryview:
+        """Borrow-only zero-copy view of the HTTP body (or whole block).
+
+        Same lifetime contract as :meth:`content_view`.
+        """
+        view = self.content_view()
+        if self.http_content_offset < 0:
+            return view
+        return view[self.http_content_offset:]
 
     def detach(self) -> "WarcRecord":
         """Copy this record's content out of the parse arena (returns

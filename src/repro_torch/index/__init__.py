@@ -1,7 +1,7 @@
 """``repro_torch.index`` — CDX-style record index + archive query engine.
 
-* :mod:`.cdx` — binary columnar CDX index (build / merge / save / load)
-  and :class:`RandomAccessReader`;
+* :mod:`.cdx` — binary columnar CDX index (build / merge / save / load),
+  :class:`RandomAccessReader` and :func:`verify_index`;
 * :mod:`.signature` — per-record n-gram Bloom-style bitmaps, the
   decompress-avoidance pre-filter;
 * :mod:`.query` — header-predicate + payload-pattern queries, candidate
@@ -14,7 +14,8 @@
 ...     hits = engine.search(b"archive", HeaderFilter(status=200))
 """
 from . import signature
-from .cdx import CdxEntry, CdxIndex, RandomAccessReader, build_index
+from .cdx import (CdxEntry, CdxIndex, RandomAccessReader, build_index,
+                  verify_index)
 from .query import (
     HeaderFilter,
     PatternHit,
@@ -42,4 +43,5 @@ __all__ = [
     "full_scan_search",
     "required_literals",
     "signature",
+    "verify_index",
 ]

@@ -17,7 +17,9 @@ The build computes digest and signature of each batch of record payloads
 in one fused kernel sweep on the device
 (:func:`repro_torch.kernels.digest_sig.digest_signature_batch`).
 :class:`RandomAccessReader` opens a shard at an indexed offset and
-parses exactly one record. ``offset`` is the absolute position in the
+parses exactly one record; :func:`verify_index` re-reads every indexed
+record and checks its stored digest (and optionally its signature) in
+batched kernel launches. ``offset`` is the absolute position in the
 compressed file for gzip members and in the raw file for uncompressed
 WARCs. The ``.cdx`` byte format is the reference package's v2 format,
 byte for byte; its zstd frame columns (``frame_off``/``frame_base``) are
@@ -41,10 +43,10 @@ from repro_torch.core.warc.record import (
     WarcRecordType,
 )
 from repro_torch.core.warc.streams import detect_compression
-from .signature import SIG_BITS, SIG_HASHES, SIG_NGRAM
+from .signature import SIG_BITS, SIG_HASHES, SIG_NGRAM, signature_of
 
 __all__ = ["CdxEntry", "CdxIndex", "NO_FRAME", "RandomAccessReader",
-           "build_index"]
+           "build_index", "verify_index"]
 
 _MAGIC = b"REPROCDX"
 _VERSION = 2  # v2 adds the zstd frame columns (frame_off / frame_base)
@@ -329,6 +331,14 @@ _FUSED_BATCH_BYTES = 32 << 20  # …or payload bytes, whichever trips first:
                                # MB-scale records must flush early
 
 
+def _fused_supported(sig_bits: int, sig_ngram: int) -> bool:
+    """Geometry the fused kernel path covers (else: host signatures)."""
+    from repro_torch.kernels.digest_sig.digest_sig import HPAD
+
+    return (sig_bits & (sig_bits - 1) == 0
+            and 2 <= sig_ngram <= HPAD + 1)
+
+
 def _index_shard(path: str, *, sig_bits: int, sig_ngram: int,
                  sig_hashes: int, device) -> CdxIndex:
     """One-pass sweep of one shard into a single-shard partial index.
@@ -479,9 +489,12 @@ class RandomAccessReader:
 
     The shard is opened once; every :meth:`read` is one seek + one member
     decode + one record parse — cost independent of archive size.
+    ``verify_digests=True`` checks each read record's WARC digest headers
+    (``WarcRecord.verified_block_digest`` / ``verified_payload_digest``).
     """
 
-    def __init__(self, path: str, *, parse_http: bool = True) -> None:
+    def __init__(self, path: str, *, parse_http: bool = True,
+                 verify_digests: bool = False) -> None:
         self.path = path
         self._f = open(path, "rb")
         self.kind = detect_compression(self._f.read(8))
@@ -492,11 +505,13 @@ class RandomAccessReader:
                 f"{self.kind} WARC shards are not ported yet (ROADMAP: "
                 f"LZ4, zstd and xxh32 streams)")
         self._parse_http = parse_http
+        self._verify = verify_digests
 
     def read(self, offset: int) -> WarcRecord:
         """Parse exactly the record starting at ``offset``."""
         return read_record_at(self._f, int(offset),
-                              parse_http=self._parse_http, shard=self.path)
+                              parse_http=self._parse_http,
+                              verify_digests=self._verify, shard=self.path)
 
     # -- lifecycle -------------------------------------------------------
     def close(self) -> None:
@@ -507,3 +522,84 @@ class RandomAccessReader:
 
     def __exit__(self, *exc_info) -> None:
         self.close()
+
+
+def verify_index(index: CdxIndex, *, limit: int | None = None,
+                 check_signatures: bool = False,
+                 device="cuda") -> list[bool]:
+    """Bulk-verify indexed adler32 digests against re-read record content.
+
+    Every checked record (the first ``limit`` rows, default all) is
+    fetched through :class:`RandomAccessReader` and the whole batch is
+    verified in batched kernel launches on ``device`` — one per width
+    bucket, never one per record. Digest-only verification (the default)
+    goes through :func:`~repro_torch.core.warc.checksum.verify_digests_bulk`
+    (the ``adler32`` kernel); ``check_signatures=True`` routes the batch
+    through the fused
+    :func:`repro_torch.kernels.digest_sig.digest_signature_batch` sweep
+    the build uses, in the build's flush-sized chunks, and additionally
+    requires each recomputed n-gram signature to equal the stored row.
+
+    A signature geometry the fused kernel does not cover (an index the
+    reference package built with, say, ``sig_bits=192``) raises
+    ``ValueError`` on the GPU, as :func:`build_index` does; with
+    ``device="cpu"`` its digests go through the ``adler32`` wrapper and
+    its signatures are recomputed on the host.
+    """
+    from repro_torch._device import resolve_device
+    from repro_torch.core.warc.checksum import verify_digests_bulk
+
+    dev = resolve_device(device)
+    fused = check_signatures and _fused_supported(index.sig_bits,
+                                                  index.sig_ngram)
+    if check_signatures and not fused and dev.type != "cpu":
+        raise ValueError(
+            f"the digest_sig kernel does not cover this index's signature "
+            f"geometry ({index.sig_bits} bits, {index.sig_ngram}-grams); "
+            f"verify its signatures with device='cpu'")
+    n = len(index) if limit is None else min(limit, len(index))
+    datas: list[bytes] = []
+    readers: dict[int, RandomAccessReader] = {}
+    try:
+        for i in range(n):
+            sid = int(index.shard_id[i])
+            reader = readers.get(sid)
+            if reader is None:
+                reader = readers[sid] = RandomAccessReader(
+                    index.shard_paths[sid], parse_http=False)
+            datas.append(reader.read(int(index.offset[i])).content)
+    finally:
+        for reader in readers.values():
+            reader.close()
+    expected = index.digest[:n].astype(np.uint32)
+    if fused:
+        from repro_torch.kernels.digest_sig import digest_signature_batch
+
+        # chunked like the build's flushes: one unbounded sweep would pad
+        # the whole corpus into int32 hash matrices (4x the payload bytes)
+        ok = np.empty(n, bool)
+        start = 0
+        while start < n:
+            end = start + 1
+            nbytes = len(datas[start])
+            while end < n and end - start < _FUSED_BATCH and \
+                    nbytes < _FUSED_BATCH_BYTES:
+                nbytes += len(datas[end])
+                end += 1
+            digests, sigs = digest_signature_batch(
+                datas[start:end], bits=index.sig_bits, n=index.sig_ngram,
+                k=index.sig_hashes, device=dev)
+            ok[start:end] = ((digests == expected[start:end])
+                             & (sigs == index.signatures[start:end])
+                             .all(axis=1))
+            start = end
+        return [bool(b) for b in ok]
+    headers = [f"adler32:{int(d):08x}" for d in expected]
+    results = verify_digests_bulk(datas, headers, device=dev)
+    if check_signatures:
+        for i, data in enumerate(datas):
+            sig = signature_of(data, bits=index.sig_bits,
+                               n=index.sig_ngram, k=index.sig_hashes)
+            results[i] = results[i] and bool(
+                (sig == index.signatures[i]).all())
+    return results

@@ -62,11 +62,11 @@ __all__ = ["HeaderFilter", "PatternHit", "QueryEngine", "QueryPlan",
            "full_scan_search", "full_scan_regex", "host_positions",
            "required_literals"]
 
-_BATCH_RECORDS = 64      # candidates per scan batch, or…
-_BATCH_BYTES = 4 << 20   # …payload bytes, whichever trips first
-_SCAN_BLOCK = 8192       # width-bucket granularity: few-KiB records pad
-                         # ≤2×, not to the 64 KiB whole-buffer default
-_EXCERPT_BYTES = 80      # hit excerpt length after the first match
+_DEFAULT_BATCH_RECORDS = 64     # candidates per scan batch, or…
+_DEFAULT_BATCH_BYTES = 4 << 20  # …payload bytes, whichever trips first
+_DEFAULT_SCAN_BLOCK = 8192      # width-bucket granularity: few-KiB records
+                                # pad ≤2×, not to the 64 KiB whole-buffer
+                                # default
 _COLUMNAR_DENSITY = 0.25  # candidate share above which scanning the whole
                           # row-group beats gathering candidates into a
                           # compact matrix (gather copies; whole-group reads
@@ -88,6 +88,12 @@ class HeaderFilter:
     mime_prefix: bytes | None = None
     url_prefix: bytes | None = None
     time_range: tuple[int, int] | None = None
+
+    def key(self) -> tuple:
+        """Hashable identity (dataclass __hash__ is suppressed by eq)."""
+        return (None if self.record_type is None else int(self.record_type),
+                self.status, self.mime_prefix, self.url_prefix,
+                self.time_range)
 
 
 @dataclass
@@ -222,12 +228,26 @@ def required_literals(pattern: bytes, flags: int = 0) -> list[bytes]:
 
 class QueryEngine:
     """Run header + pattern queries against an indexed corpus on
-    ``device`` (default the GPU; ``"cpu"`` only when asked)."""
+    ``device`` (default the GPU; ``"cpu"`` only when asked).
+
+    ``batch_records`` / ``batch_bytes`` bound one CDX+seek scan batch
+    (and one gateway scan chunk), ``scan_block`` is the batch kernel's
+    width-bucket granularity, ``excerpt_bytes`` the hit excerpt length
+    after the first match.
+    """
 
     def __init__(self, index: CdxIndex, *,
-                 store: "ColumnStore | None" = None, device="cuda") -> None:
+                 store: "ColumnStore | None" = None,
+                 batch_records: int = _DEFAULT_BATCH_RECORDS,
+                 batch_bytes: int = _DEFAULT_BATCH_BYTES,
+                 scan_block: int = _DEFAULT_SCAN_BLOCK,
+                 excerpt_bytes: int = 80, device="cuda") -> None:
         self.device = resolve_device(device)
         self.index = index
+        self.batch_records = max(1, batch_records)
+        self.batch_bytes = max(1, batch_bytes)
+        self.scan_block = scan_block
+        self.excerpt_bytes = excerpt_bytes
         self._readers: dict[int, RandomAccessReader] = {}
         self._store: "ColumnStore | None" = None
         self.stats = {"queries": 0, "header_candidates": 0,
@@ -369,7 +389,7 @@ class QueryEngine:
 
         Results are in index order. Candidates are fetched shard-by-shard
         in ascending offset order and scanned in ragged batches of at
-        most ``_BATCH_RECORDS`` records / ``_BATCH_BYTES`` bytes.
+        most ``batch_records`` records / ``batch_bytes`` bytes.
         """
         return self.execute(self.plan(pattern, flt, prefilter=prefilter))
 
@@ -402,8 +422,8 @@ class QueryEngine:
             batch_rows.append(int(r))
             batch_bufs.append(content)
             pending += len(content)
-            if (len(batch_rows) >= _BATCH_RECORDS
-                    or pending >= _BATCH_BYTES):
+            if (len(batch_rows) >= self.batch_records
+                    or pending >= self.batch_bytes):
                 hits.extend(self._scan_batch(batch_rows, batch_bufs, plan))
                 batch_rows, batch_bufs, pending = [], [], 0
         if batch_rows:
@@ -518,7 +538,7 @@ class QueryEngine:
         """Assemble one hit."""
         first = int(positions[0])
         excerpt = bytes(buf[max(0, first - 16):
-                            first + first_len + _EXCERPT_BYTES])
+                            first + first_len + self.excerpt_bytes])
         sid = int(self.index.shard_id[row])
         return PatternHit(
             index_row=row, shard=self.index.shard_paths[sid],
@@ -537,11 +557,11 @@ class QueryEngine:
                 find_pattern_mask_batch)
 
             masks = find_pattern_mask_batch(bufs, plan.kernel_pattern,
-                                            block=_SCAN_BLOCK,
+                                            block=self.scan_block,
                                             device=self.device)
             lit_positions = [np.flatnonzero(m) for m in masks]
             self.stats["kernel_dispatches"] += dispatch_count(
-                [len(b) for b in bufs], _SCAN_BLOCK)
+                [len(b) for b in bufs], self.scan_block)
         else:  # host path: plain bytes.find sweep (or regex verify-all)
             lit_positions = [plan.host_scan(buf) for buf in bufs]
         hits = []

@@ -17,8 +17,6 @@ from .query import HeaderFilter, PatternHit, QueryEngine
 
 __all__ = ["IndexQueryService", "QueryRequest", "QueryResponse"]
 
-_BATCH_SIZE = 8  # requests drained per batch
-
 
 @dataclass
 class QueryRequest:
@@ -33,6 +31,13 @@ class QueryRequest:
     top_k: int = 10
     prefilter: bool = True
     regex: bool = False
+
+    def scan_key(self) -> tuple:
+        """Identity of the *scan* this request needs (not of the
+        response shaping — ``top_k`` ranks after the scan), i.e. what
+        the serve gateway coalesces on."""
+        return (self.pattern, self.regex, self.prefilter,
+                None if self.filters is None else self.filters.key())
 
 
 @dataclass
@@ -52,10 +57,12 @@ class IndexQueryService:
     brings its own device.
     """
 
-    def __init__(self, index: CdxIndex, *, device="cuda",
+    def __init__(self, index: CdxIndex, *, batch_size: int = 8,
+                 device="cuda",
                  engine: QueryEngine | None = None) -> None:
         self.engine = (engine if engine is not None
                        else QueryEngine(index, device=device))
+        self.batch_size = max(1, batch_size)
         self._queue: list[QueryRequest] = []
         self.stats = {"requests": 0, "batches": 0, "hits_returned": 0,
                       "serve_s": 0.0}
@@ -63,6 +70,9 @@ class IndexQueryService:
     # -- request intake --------------------------------------------------
     def submit(self, request: QueryRequest) -> None:
         self._queue.append(request)
+
+    def pending(self) -> int:
+        return len(self._queue)
 
     # -- serving ---------------------------------------------------------
     def run_batch(self, requests: list[QueryRequest]) -> list[QueryResponse]:
@@ -92,8 +102,8 @@ class IndexQueryService:
         """Serve everything queued, in submission order, batch by batch."""
         responses: list[QueryResponse] = []
         while self._queue:
-            batch = self._queue[:_BATCH_SIZE]
-            del self._queue[:_BATCH_SIZE]
+            batch = self._queue[:self.batch_size]
+            del self._queue[:self.batch_size]
             responses.extend(self.run_batch(batch))
         return responses
 

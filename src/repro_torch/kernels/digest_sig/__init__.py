@@ -6,15 +6,13 @@ construction reads each payload byte once.
 """
 from .digest_sig import (BLOCK, FNV_PRIME, HPAD, digest_sig_partials_batch,
                          digest_sig_plain)
-from .ops import (combine_partials, digest_signature_batch,
-                  digest_signature_rowgroup)
+from .ops import digest_signature_batch, digest_signature_rowgroup
 from .ref import digest_signature_reference
 
 __all__ = [
     "BLOCK",
     "FNV_PRIME",
     "HPAD",
-    "combine_partials",
     "digest_sig_partials_batch",
     "digest_sig_plain",
     "digest_signature_batch",

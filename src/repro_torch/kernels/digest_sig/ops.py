@@ -7,7 +7,8 @@ rule), copies each bucket's padded matrix to the device, sweeps it
 and finishes on the host:
 
 * Adler-32: the kernel's ``(S, T)`` partials reduce through
-  :func:`combine_partials` — entry-wise equal to ``zlib.adler32``.
+  :func:`repro_torch.kernels.adler32.ops.combine_partials` — entry-wise
+  equal to ``zlib.adler32``.
 * signatures: the n-gram hash matrix feeds the double-hash position
   derivation (:func:`repro_torch.index.signature.positions_from_hashes`)
   and the batch ``packbits`` fold — bit-identical to
@@ -30,33 +31,13 @@ import torch
 
 from repro_torch import obs
 from repro_torch._device import resolve_device, to_device
+from repro_torch.kernels.adler32.ops import combine_partials
 from repro_torch.kernels.bucketing import (as_u8, check_rowgroup,
                                            payload_width, quantize_count)
 from repro_torch.obs.kernels import record_dispatch
 from .digest_sig import BLOCK, HPAD, digest_sig_partials_batch
 
-__all__ = ["combine_partials", "digest_signature_batch",
-           "digest_signature_rowgroup"]
-
-MOD = 65521  # Adler-32 modulus
-
-
-def combine_partials(s: np.ndarray, t: np.ndarray, lengths: np.ndarray,
-                     block: int) -> np.ndarray:
-    """Host-side reduction of per-block partials to final checksums.
-
-    Zero padding contributes nothing to S or T, so full-row sums with each
-    row's *true* length are exact for every ragged entry.
-    """
-    s = s.astype(np.int64)
-    t = t.astype(np.int64)
-    offsets = np.arange(s.shape[1], dtype=np.int64) * block   # o_j
-    n = lengths.astype(np.int64)[:, None]                     # (B, 1)
-    a = (1 + s.sum(axis=1)) % MOD
-    b = (n[:, 0] + ((n - offsets) * s - t).sum(axis=1)) % MOD
-    out = ((b << 16) | a).astype(np.uint32)
-    out[lengths == 0] = 1  # adler32(b"") == 1
-    return out
+__all__ = ["digest_signature_batch", "digest_signature_rowgroup"]
 
 
 def _sig_geometry(bits: int | None, n: int | None, k: int | None

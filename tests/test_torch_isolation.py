@@ -1,12 +1,15 @@
 """``repro_torch`` and ``chip_smoke.py`` run without JAX and without the
-reference package (index build, CDX search, columnar derive and search),
-and the port's entry points default to the GPU."""
+reference package (index build, CDX search, columnar derive and search,
+index verification, the sharded gateway), and the port's entry points
+default to the GPU."""
 import ast
 import os
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -15,6 +18,8 @@ PORT = ROOT / "src" / "repro_torch"
 # the port's code in scan units: each subpackage, and the package's
 # top-level modules together with chip_smoke.py
 SUBPACKAGES = ["columnar", "core", "data", "index", "kernels", "obs"]
+# subpackages scanned with another unit: the gateway serves the index
+ALSO_SCANNED = {"index": ["serve"]}
 
 _BLOCKED_RUN = r"""
 import importlib.abc, sys
@@ -53,6 +58,22 @@ with IndexQueryService(engine.index, engine=engine) as svc:
     (resp,) = svc.serve([QueryRequest(b"nginx/1.", top_k=100)])
 assert {(h.shard, h.offset): h.n_matches for h in resp.hits} == got
 assert engine.stats["kernel_dispatches"] > 0
+# the verify slice: every digest and signature checks out
+from repro_torch.core.warc.checksum import verify_digests_bulk
+from repro_torch.index import verify_index
+assert verify_index(index, device="cpu") == [True] * len(index)
+assert all(verify_index(index, check_signatures=True, device="cpu"))
+assert verify_digests_bulk([b"a", b"a"], ["adler32:00620062", "crc32:0"],
+                           device="cpu") == [True, False]
+# the gateway: two shards, coalesced duplicates, the same hits
+from repro_torch.serve import ArchiveGateway
+with ArchiveGateway(index, shards=2, device="cpu") as gw:
+    futs = [gw.submit(QueryRequest(b"nginx/1.", top_k=100))
+            for _ in range(3)]
+    for f in futs:
+        assert {(h.shard, h.offset): h.n_matches
+                for h in f.result(60).hits} == got
+    assert gw.metrics.count("kernel_dispatches") > 0
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")
        and sys.modules[m] is not None]
 assert not bad, bad
@@ -73,7 +94,8 @@ def test_port_runs_with_jax_and_reference_blocked():
 def _unit_files(unit: str) -> list[Path]:
     if unit == "top-level":
         return sorted(PORT.glob("*.py")) + [ROOT / "chip_smoke.py"]
-    return sorted((PORT / unit).rglob("*.py"))
+    return [p for sub in [unit, *ALSO_SCANNED.get(unit, [])]
+            for p in sorted((PORT / sub).rglob("*.py"))]
 
 
 @pytest.mark.parametrize("unit", SUBPACKAGES + ["top-level"])
@@ -81,7 +103,8 @@ def test_no_jax_or_reference_imports(unit):
     files = _unit_files(unit)
     if unit == "top-level":  # every subpackage is one of the scan units
         assert sorted(p.name for p in PORT.iterdir() if p.is_dir()
-                      and p.name != "__pycache__") == SUBPACKAGES
+                      and p.name != "__pycache__") == sorted(
+            SUBPACKAGES + [s for v in ALSO_SCANNED.values() for s in v])
     bad = []
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -98,20 +121,37 @@ def test_no_jax_or_reference_imports(unit):
     assert files and not bad, bad
 
 
-def _default_device_call(entry: str, path: str):
-    from repro_torch.index import IndexQueryService, QueryEngine, build_index
+def _default_device_calls(entry: str, path: str) -> list:
+    """Calls that must raise without a GPU unless ``device="cpu"`` is
+    given; each parametrised entry also covers later slices' entry
+    points of the same kind."""
+    from repro_torch.core.warc.checksum import verify_digests_bulk
+    from repro_torch.index import (IndexQueryService, QueryEngine,
+                                   build_index, verify_index)
+    from repro_torch.kernels.adler32 import adler32_batch
     from repro_torch.kernels.digest_sig import digest_signature_batch
-    from repro_torch.kernels.pattern_scan import find_pattern_mask_batch
+    from repro_torch.kernels.pattern_scan import (
+        find_pattern_mask_batch, find_pattern_masks_multi,
+        find_pattern_masks_multi_rowgroup)
+    from repro_torch.serve import ArchiveGateway
 
     if entry == "build_index":
-        return lambda: build_index([path])
+        return [lambda: build_index([path])]
     index = build_index([path], device="cpu")
-    return {"QueryEngine": lambda: QueryEngine(index),
-            "IndexQueryService": lambda: IndexQueryService(index),
-            "digest_signature_batch":
+    group = np.zeros((2, 16 + 128), np.uint8)
+    return {"QueryEngine": [lambda: QueryEngine(index),
+                            lambda: ArchiveGateway(index, shards=2)],
+            "IndexQueryService": [lambda: IndexQueryService(index),
+                                  lambda: verify_index(index)],
+            "digest_signature_batch": [
                 lambda: digest_signature_batch([b"abcd"]),
-            "find_pattern_mask_batch":
-                lambda: find_pattern_mask_batch([b"abcd"], b"b")}[entry]
+                lambda: adler32_batch([b"abcd"]),
+                lambda: verify_digests_bulk([b"a"], ["adler32:00620062"])],
+            "find_pattern_mask_batch": [
+                lambda: find_pattern_mask_batch([b"abcd"], b"b"),
+                lambda: find_pattern_masks_multi([b"abcd"], [b"b"]),
+                lambda: find_pattern_masks_multi_rowgroup(group, [3],
+                                                          [b"b"])]}[entry]
 
 
 @pytest.mark.parametrize("entry", ["build_index", "QueryEngine",
@@ -125,6 +165,11 @@ def test_entry_points_default_to_the_gpu(tmp_path, entry):
 
     path = str(tmp_path / "a.warc.gz")
     write_corpus(path, CorpusSpec(n_pages=1), "gzip")
-    call = _default_device_call(entry, path)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        call()
+    calls = _default_device_calls(entry, path)
+    before = set(threading.enumerate())
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    # the gateway raised before it started a shard or supervisor thread
+    assert not [t for t in set(threading.enumerate()) - before
+                if t.name.startswith("gw-")]
