@@ -5,8 +5,10 @@ synthetic gzip corpus → ``build_index`` → ``IndexQueryService`` literal
 and regex searches over CDX+seek; the same corpus → ``columnar.derive``
 → ``QueryEngine.from_store`` → the same searches over the ``.repcol``
 row-groups; ``verify_index`` over the whole index; the sharded
-``ArchiveGateway`` serving the searches to concurrent clients — and
-holds every kernel of those paths against its plain PyTorch version:
+``ArchiveGateway`` serving the searches to concurrent clients; the
+``fastwarc_lm`` byte-level LM at full width prefilling and serving prompts
+taken from the corpus — and holds every kernel of those paths against its
+plain PyTorch version:
 
 1. corpus: 4 gzip shards of ``CorpusSpec(n_pages=10_000, seed=i)`` written
    by 4 spawned processes before any CUDA work;
@@ -42,10 +44,27 @@ holds every kernel of those paths against its plain PyTorch version:
     seeded order; every hit list equal to phase 6's; then
     ``find_pattern_masks_multi_rowgroup`` on the store's fullest
     row-group of phase 8's dominant width with phase 8's patterns, equal
-    to ``find_pattern_mask_rowgroup`` once per pattern.
+    to ``find_pattern_mask_rowgroup`` once per pattern;
+11. LM serve: ``fastwarc_lm`` at full width (12 layers, d_model 768, 12
+    query heads over 4 KV heads, 76 M float32 parameters from a seeded
+    ``torch.Generator``), TF32 off: (a) ``forward`` over the ``serve_1k``
+    batch (8 x 1,024 tokens: BOS + the first 1,023 bytes of 8 seeded
+    response payloads of phase 1's corpus), warm-up + 5 timed runs, row
+    0's logits equal to the CPU forward's; (b) ``ServeEngine(batch_size=8,
+    max_seq=1024, temperature=0)`` serving 16 requests of 64-256 payload
+    bytes, ``max_new_tokens=64``, each first token equal to the argmax of
+    ``forward``'s last-position logits on the card, continued greedily
+    over the tokens the engine generates unrecorded while it prefills
+    the batch's longer prompts.
+
+Phase 4 also holds ``flash_attention_bhsd`` against its plain version at
+the prefill shape (f32), decode ``Sq = 1`` over cache views of 1 and
+1,000 keys, InternLM2-1.8B's attention in bf16, a non-causal shape,
+``Sq = 256, Sk = 128`` causal (rows with no key exactly 0) and
+``Sq = Sk = 37``, and times each against ``scaled_dot_product_attention``.
 
 The launch count of each kernel is set to 0 before each path (phases 5,
-6, 7, 8, 9, 10) and read after it; every kernel of a path must have
+6, 7, 8, 9, 10, 11) and read after it; every kernel of a path must have
 launched.
 
 Every phase raises on failure. The script prints a ``{"kernels": ...}``
@@ -98,14 +117,27 @@ from repro_torch.kernels.pattern_scan import pattern_scan as ps  # noqa: E402
 from repro_torch.kernels.pattern_scan import (  # noqa: E402
     find_pattern_mask_rowgroup, find_pattern_masks_multi,
     find_pattern_masks_multi_rowgroup)
+from repro_torch.obs import trace  # noqa: E402
 from repro_torch.obs.export import render_stage_table  # noqa: E402
-from repro_torch.serve import ArchiveGateway  # noqa: E402
+from repro_torch.serve import ArchiveGateway, Request, ServeEngine  # noqa: E402
+from repro_torch.configs import get_spec  # noqa: E402
+from repro_torch.core.warc import WarcRecordType  # noqa: E402
+from repro_torch.data.tokenizer import BOS_ID, encode  # noqa: E402
+from repro_torch.kernels.flash_attention import attention_plain  # noqa: E402
+from repro_torch.models import transformer as tf  # noqa: E402
 
-# the kernel module (the package's ``adler32`` name is the checksum function)
+# the kernel modules (the packages' ``adler32`` and ``flash_attention``
+# names are the checksum function and the attention wrapper)
 ad = importlib.import_module("repro_torch.kernels.adler32.adler32")
+fa = importlib.import_module(
+    "repro_torch.kernels.flash_attention.flash_attention")
 N_SHARDS = 4
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (NVIDIA data sheet)
 SCALAR_OPS_PER_S = 67e12    # H100 SXM non-tensor 32-bit rate (data sheet)
+BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core rate (data sheet)
+LM_REQUESTS = 16            # phase 11's engine requests ...
+LM_NEW_TOKENS = 64          # ... each generating at most this many tokens
+LM_PREFILL_RUNS = 5         # timed prefill forwards after one warm-up
 SIG_SAMPLE = 2048
 PAYLOAD_SAMPLE = 4096       # store payloads held against the source records
 DIGEST_SAMPLE = 2048        # records whose mixed digest headers phase 9 checks
@@ -542,6 +574,113 @@ def adler_checks(results: dict) -> None:
     log(f"[kernels] adler32 bit-identical to its plain version (max "
         f"|kernel - plain| = {err}); adler32_batch == zlib.adler32 on "
         f"{len(bufs)} payloads incl. empty and all-0xFF")
+
+
+def flash_cost(b: int, h: int, hkv: int, sq: int, sk: int, d: int,
+               esize: int, causal: bool) -> tuple[int, int]:
+    """flash_attention: read q and k/v once, write the output; 2 flops
+    per multiply-add of Q K^T and of P V over the (query, key) pairs the
+    mask keeps (causal: key j <= i + Sk - Sq)."""
+    i = np.arange(sq, dtype=np.int64)
+    pairs = (int(np.clip(i + sk - sq + 1, 0, sk).sum()) if causal
+             else sq * sk)
+    return (esize * (2 * b * h * sq * d + 2 * b * hkv * sk * d),
+            4 * b * h * d * pairs)
+
+
+def flash_bound(nbytes: int, ops: int, dtype: torch.dtype
+                ) -> tuple[float, str]:
+    """Least time: bytes over the memory rate, or the flops over the
+    card's peak rate for the input type (fp32 CUDA cores, bf16 tensor
+    cores), whichever is larger."""
+    rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else SCALAR_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# label, B, H, Hkv, Sq, Sk, D, dtype, causal; "decode" cases read k/v as
+# views of a [B, Hkv, 1024, D] cache, as decode_step does
+FLASH_CASES = (
+    ("prefill", 8, 12, 4, 1024, 1024, 64, torch.float32, True),
+    ("decode Sk=1", 8, 12, 4, 1, 1, 64, torch.float32, True),
+    ("decode Sk=1000", 8, 12, 4, 1, 1000, 64, torch.float32, True),
+    ("internlm2-1.8b bf16", 1, 16, 8, 2048, 2048, 128, torch.bfloat16, True),
+    ("non-causal", 2, 12, 4, 512, 700, 64, torch.float32, False),
+    ("fully masked rows", 1, 4, 2, 256, 128, 64, torch.float32, True),
+    ("ragged 37", 2, 12, 4, 37, 37, 64, torch.float32, True),
+)
+
+
+def flash_checks(results: dict) -> None:
+    """flash_attention_bhsd on the card against its plain version (rtol
+    1e-4 / atol 1e-5 in f32, 2e-2 in bf16: the reference's kernel-test
+    tolerances) at each case, timed beside the plain version and
+    ``scaled_dot_product_attention`` (SDPA's causal mask is top-left
+    aligned, so a causal case with Sq != Sk has no library time; decode
+    is SDPA non-causal over the valid prefix, the same function)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    err = {"float32": 0.0, "bfloat16": 0.0}
+    out = {}
+    for label, b, h, hkv, sq, sk, d, dt, causal in FLASH_CASES:
+        q = torch.randn((b, h, sq, d), generator=gen, device="cuda").to(dt)
+        if label.startswith("decode"):
+            cache = torch.randn((2, b, hkv, 1024, d), generator=gen,
+                                device="cuda").to(dt)
+            k, v = cache[0, :, :, :sk], cache[1, :, :, :sk]
+        else:
+            k, v = (torch.randn((b, hkv, sk, d), generator=gen,
+                                device="cuda").to(dt) for _ in range(2))
+        got = fa.flash_attention_bhsd(q, k, v, causal=causal)
+        want = attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        tol = 2e-2 if dt == torch.bfloat16 else 1e-4
+        e = float((got.float() - want.float()).abs().max())
+        err[str(dt).split(".")[1]] = max(err[str(dt).split(".")[1]], e)
+        try:
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                       atol=tol if dt == torch.bfloat16
+                                       else 1e-5)
+        except AssertionError as exc:
+            raise RuntimeError(f"flash_attention {label}: card != plain: "
+                               f"{exc}") from None
+        if label == "fully masked rows" and (
+                got[:, :, :sq - sk].abs().max() != 0
+                or got[:, :, sq - sk:].abs().min() == 0):
+            raise RuntimeError("flash_attention: rows with no key != 0")
+        ms = time_ms(lambda: fa.flash_attention_bhsd(q, k, v, causal=causal))
+        pms = time_ms(lambda: attention_plain(q, k, v, causal=causal), 20)
+        lib = lib_err = None
+        if not causal or sq == sk or sq == 1:
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal and sq == sk and sq > 1,
+                    enable_gqa=True)
+            lib = time_ms(sdpa)
+            lib_err = float((sdpa().float() - want.float()).abs().max())
+        nbytes, ops = flash_cost(b, h, hkv, sq, sk, d, q.element_size(),
+                                 causal)
+        bnd, by = flash_bound(nbytes, ops, dt)
+        out[label] = {"shape_q": [b, h, sq, d], "shape_kv": [b, hkv, sk, d],
+                      "dtype": str(dt), "causal": causal, "max_abs_err": e,
+                      "ms": ms, "plain_ms": pms, "library_ms": lib,
+                      "library_max_abs_err": lib_err, "bound_ms": bnd,
+                      "bound_by": by, "bytes": nbytes, "flops": ops}
+        log(f"[kernels] flash_attention {label} q{[b, h, sq, d]} "
+            f"kv{[b, hkv, sk, d]} {str(dt)[6:]} causal={causal}: {ms:.4g} "
+            f"ms/launch, bound {bnd:.4g} ms ({by}), plain {pms:.4g} ms, "
+            f"SDPA {'%.4g ms' % lib if lib is not None else 'n/a'}; max "
+            f"|kernel - plain| = {e:.3g}"
+            + (f", |SDPA - plain| = {lib_err:.3g}" if lib_err is not None
+               else ""))
+    results["flash"] = out
+    results["max_abs_err"]["flash_attention"] = err["float32"]
+    results["max_abs_err"]["flash_attention_bf16"] = err["bfloat16"]
+    log(f"[kernels] flash_attention within tolerance of its plain version "
+        f"in every case (max |kernel - plain|: f32 {err['float32']:.3g}, "
+        f"bf16 {err['bfloat16']:.3g})")
 
 
 def dominant_shape(kernel: str) -> tuple[int, int]:
@@ -1069,6 +1208,232 @@ def rowgroup_multi_phase(store: ColumnStore, results: dict) -> None:
         f"{results['rowgroup_multi_launches']} launch")
 
 
+# -- phase 11 --------------------------------------------------------------
+def response_payloads(path: str, n: int) -> list[bytes]:
+    """The HTTP bodies of the first ``n`` response records of a shard."""
+    out = []
+    for rec in FastWARCIterator(path):
+        if rec.record_type == WarcRecordType.response:
+            out.append(bytes(rec.payload_view()))
+            if len(out) == n:
+                break
+    return out
+
+
+def span_sum(name: str) -> float:
+    h = obs.snapshot().histograms.get(f"span.{name}_s")
+    return h["sum"] if h else 0.0
+
+
+def decode_profile(params, cfg, batch: int, seq: int, length: int) -> dict:
+    """Device time of the engine's decode steps: 16 ``decode_step`` calls
+    on a batch-``batch`` cache holding ``length`` positions, timed on the
+    host clock, then again under ``torch.profiler`` for the device time
+    by kernel; busy share = device time / unprofiled wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def steps(cache, tok):
+        for _ in range(16):
+            logits, cache = tf.decode_step(params, cache, tok, cfg)
+            tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+
+    with torch.inference_mode():
+        walls = []
+        for run in range(3):  # run 0 warms up
+            cache = tf.init_cache(cfg, batch, seq)
+            cache["length"] = length
+            tok = torch.full((batch,), BOS_ID, device="cuda")
+            t0 = time.perf_counter()
+            steps(cache, tok)
+            walls.append(time.perf_counter() - t0)
+        cache["length"] = length
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            steps(cache, tok)
+    wall = min(walls[1:])
+    by_kernel: dict = {}  # device-side events only: an aten op's row
+    for e in prof.key_averages():  # repeats its kernels' device time
+        t = e.self_device_time_total
+        if t > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[e.key] = by_kernel.get(e.key, 0.0) + t / 1e6
+    device = sum(by_kernel.values())
+    flash = sum(t for k, t in by_kernel.items() if "flash_fwd_kernel" in k)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+    return {"steps": 16, "cache_length": length, "wall_s": wall,
+            "device_s": device if device else None,
+            "busy_share": device / wall if device else None,
+            "flash_s": flash, "top_kernels_s": top}
+
+
+def lm_phase(paths: list[str], results: dict) -> None:
+    """fastwarc_lm at full width on the card: the serve_1k prefill
+    through ``forward`` and the serving engine, both through the
+    flash-attention kernel."""
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"[lm] torch.backends.cuda.matmul.allow_tf32 = "
+        f"{torch.backends.cuda.matmul.allow_tf32}, "
+        f"torch.backends.cudnn.allow_tf32 = "
+        f"{torch.backends.cudnn.allow_tf32}")
+    spec = get_spec("fastwarc_lm")
+    cfg = spec.config
+    batch = spec.shape("serve_1k").params["global_batch"]
+    seq = spec.shape("serve_1k").params["seq_len"]
+    rng = np.random.default_rng(SEED + 11)
+    payloads = response_payloads(paths[0], 512)
+    pick = rng.choice(len(payloads), batch + LM_REQUESTS, replace=False)
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, generator=torch.Generator().manual_seed(SEED))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in params.parameters())
+    log(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} q heads / {cfg.n_kv_heads} kv heads, d_head "
+        f"{cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}: "
+        f"{n_params} parameters (seeded) in {time.perf_counter() - t0:.3f} s")
+    if n_params != cfg.param_count():
+        raise RuntimeError(f"{n_params} parameters, config says "
+                           f"{cfg.param_count()}")
+
+    # (a) prefill: the serve_1k batch through forward
+    tokens = np.stack([np.concatenate(([BOS_ID], encode(payloads[i][:seq - 1])))
+                       for i in pick[:batch]])
+    tok_d = torch.from_numpy(tokens).cuda()
+    fa.launches = 0
+    times = []
+    with torch.inference_mode():
+        for run in range(LM_PREFILL_RUNS + 1):  # run 0 warms up
+            t0 = time.perf_counter()
+            logits, _ = tf.forward(params, tok_d, cfg)
+            torch.cuda.synchronize()
+            if run:
+                times.append(time.perf_counter() - t0)
+    prefill_launches = fa.launches
+    if prefill_launches <= 0:
+        raise RuntimeError("forward did not launch flash_attention")
+    if logits.shape != (batch, seq, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise RuntimeError(f"prefill logits {tuple(logits.shape)} not finite "
+                           f"or of the wrong shape")
+    prefill_s = float(np.median(times))
+    cpu_params = tf.init_params(cfg, generator=torch.Generator().manual_seed(
+        SEED), device="cpu")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        cpu_logits, _ = tf.forward(cpu_params, torch.from_numpy(tokens[:1]),
+                                   cfg)
+    cpu_s = time.perf_counter() - t0
+    del cpu_params
+    row0 = logits[0].cpu()
+    diff = float((row0 - cpu_logits[0]).abs().max())
+    try:
+        torch.testing.assert_close(row0, cpu_logits[0], rtol=2e-4, atol=2e-4)
+    except AssertionError as exc:
+        raise RuntimeError(f"prefill row 0: card != CPU forward: {exc}") \
+            from None
+    log(f"[lm] (a) prefill forward [{batch}, {seq}]: median of "
+        f"{LM_PREFILL_RUNS} {prefill_s * 1e3:.3f} ms (runs "
+        f"{', '.join(f'{t * 1e3:.3f}' for t in times)} ms) = "
+        f"{batch * seq / prefill_s:.1f} prefill tokens/s; "
+        f"{prefill_launches} flash_attention launches "
+        f"({cfg.n_layers} a forward); row 0 logits == CPU forward "
+        f"({cpu_s:.3f} s), max |card - CPU| = {diff:.3g}")
+
+    # (b) the serving engine
+    prompts = [payloads[i][:int(rng.integers(64, 257))]
+               for i in pick[batch:]]
+    requests = [Request(p, max_new_tokens=LM_NEW_TOKENS) for p in prompts]
+    engine = ServeEngine(cfg, params, batch_size=batch, max_seq=seq,
+                         temperature=0.0, device="cuda")
+    prev = trace.enable(True)
+    spans0 = {k: span_sum(k) for k in ("serve.prefill", "serve.decode")}
+    torch.cuda.reset_peak_memory_stats()
+    before = fa.launches
+    t0 = time.perf_counter()
+    try:
+        done = engine.serve(requests)
+    finally:
+        trace.enable(prev)
+    wall = time.perf_counter() - t0
+    engine_launches = fa.launches - before
+    peak = torch.cuda.max_memory_allocated()
+    if engine_launches <= 0:
+        raise RuntimeError("the engine did not launch flash_attention")
+    spans = {k: span_sum(k) - spans0[k] for k in spans0}
+    generated = engine.stats["tokens_generated"]
+    mismatch = []
+    chain_forwards = 0
+    with torch.inference_mode():
+        for j, r in enumerate(done):
+            if not r.done or not 0 < len(r.out_tokens) <= LM_NEW_TOKENS or not \
+                    all(0 <= t < cfg.vocab for t in r.out_tokens):
+                raise RuntimeError(f"request {r.prompt[:20]!r}: done "
+                                   f"{r.done}, {len(r.out_tokens)} tokens")
+            # the engine prefills its batch to the longest prompt: a slot
+            # whose prompt ends k tokens earlier generates k tokens there
+            # that it does not record (the reference's loop), so its first
+            # recorded token is forward's greedy continuation k + 1 tokens
+            # on (k = 0, one argmax, for the batch's longest prompt)
+            chunk = done[j - j % batch:j - j % batch + batch]
+            longest = max(len(c.prompt) for c in chunk)
+            ids = [BOS_ID, *encode(r.prompt).tolist()]
+            for _ in range(longest - len(r.prompt) + 1):
+                last, _ = tf.forward(params, torch.tensor([ids]).cuda(), cfg)
+                want = int(last[0, -1].argmax())
+                ids.append(want)
+                chain_forwards += 1
+            if r.out_tokens[0] != want:
+                gap = float(last[0, -1, want] - last[0, -1, r.out_tokens[0]])
+                mismatch.append((len(r.prompt), longest, r.out_tokens[0],
+                                 want, gap))
+    if mismatch:
+        raise RuntimeError(f"first tokens != forward's greedy argmax (prompt "
+                           f"bytes, batch's longest, engine, forward, logit "
+                           f"gap): {mismatch}")
+    prof = decode_profile(params, cfg, batch, seq, 256)
+    if prof["device_s"] is None:
+        log("[lm] decode profile: the profiler saw no device time (busy "
+            "share not measured)")
+    else:
+        log(f"[lm] decode profile, 16 decode_steps at cache length 256: "
+            f"wall {prof['wall_s'] * 1e3:.3f} ms, device "
+            f"{prof['device_s'] * 1e3:.3f} ms, busy share "
+            f"{prof['busy_share']:.4f}; flash_attention "
+            f"{prof['flash_s'] * 1e3:.3f} ms; top kernels (ms): "
+            + "; ".join(f"{k[:60]} {t * 1e3:.3f}"
+                        for k, t in prof["top_kernels_s"]))
+    lens = [len(p) for p in prompts]
+    results["lm"] = {
+        "decode_profile": prof,
+        "model": cfg.name, "parameters": n_params,
+        "prefill_shape": [batch, seq], "prefill_runs_s": times,
+        "prefill_s": prefill_s,
+        "prefill_tokens_per_s": batch * seq / prefill_s,
+        "row0_max_abs_diff_vs_cpu": diff,
+        "engine_requests": len(done), "prompt_bytes": [min(lens), max(lens)],
+        "tokens_generated": generated, "engine_wall_s": wall,
+        "serve_prefill_s": spans["serve.prefill"],
+        "serve_decode_s": spans["serve.decode"],
+        "decode_tokens_per_s": generated / spans["serve.decode"],
+        "engine_tokens_per_s": generated / engine.stats["decode_s"],
+        "peak_device_bytes": peak,
+        "flash_launches": {"prefill": prefill_launches,
+                           "engine": engine_launches}}
+    results["flash_launches"] = prefill_launches + engine_launches
+    log(f"[lm] (b) ServeEngine(batch_size={batch}, max_seq={seq}, greedy): "
+        f"{len(done)} requests of {min(lens)}-{max(lens)} payload bytes, "
+        f"{generated} tokens generated in {wall:.3f} s; serve.prefill "
+        f"{spans['serve.prefill']:.3f} s, serve.decode "
+        f"{spans['serve.decode']:.3f} s = {generated / spans['serve.decode']:.1f}"
+        f" decode tokens/s ({generated / engine.stats['decode_s']:.1f} tokens/s"
+        f" over the engine's time); {engine_launches} flash_attention launches; "
+        f"peak device memory {peak} bytes; every first token == forward's "
+        f"greedy argmax ({chain_forwards} check forwards)")
+    results["lm"]["phase_s"] = time.perf_counter() - t_phase
+    log(f"[lm] phase 11 in {results['lm']['phase_s']:.3f} s")
+
+
 def timed_err(name: str, kernel, plain) -> int:
     """max |kernel - plain| on the inputs the kernels line times; raises
     unless the two agree exactly."""
@@ -1172,6 +1537,9 @@ def kernel_line(results: dict, store: ColumnStore) -> dict:
     ams = time_ms(lambda: ad.adler32_partials_batch(ax))
     aplain = time_ms(lambda: ad.adler32_plain(ax), 20)
     b_ad, by_ad = bound(*adler_cost(arows, awidth))
+    # flash_attention: phase 4's prefill and decode cases, checked on the
+    # inputs they were timed on
+    fl, fd = results["flash"]["prefill"], results["flash"]["decode Sk=1000"]
     return {"kernels": [
         {"name": "pattern_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/pattern_scan/csrc/pattern_scan.cu",
@@ -1228,6 +1596,23 @@ def kernel_line(results: dict, store: ColumnStore) -> dict:
          "ms": ams, "plain_ms": aplain, "bound_ms": b_ad,
          "bound_by": by_ad, "library_ms": None,
          "shape": [arows, awidth]},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:93",
+         "launches": results["flash_launches"],
+         "max_abs_err": err["flash_attention"],
+         "ms": fl["ms"], "plain_ms": fl["plain_ms"],
+         "bound_ms": fl["bound_ms"], "bound_by": fl["bound_by"],
+         "library_ms": fl["library_ms"],
+         "library": "scaled_dot_product_attention(is_causal=True, "
+                    "enable_gqa=True)",
+         "shape": [fl["shape_q"], fl["shape_kv"]], "dtype": "float32",
+         "max_abs_err_bf16": err["flash_attention_bf16"],
+         "launches_by_phase": results["lm"]["flash_launches"],
+         "decode": {k: fd[k] for k in ("shape_q", "shape_kv", "ms",
+                                       "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms")}},
     ]}
 
 
@@ -1249,6 +1634,9 @@ def main() -> int:
 
     card = device_line()
     results["card"] = card
+    # full fp32 matrix products for every plain version and the LM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     log(f"[device] {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
@@ -1267,6 +1655,7 @@ def main() -> int:
     rowgroup_checks(results)
     multi_checks(results)
     adler_checks(results)
+    flash_checks(results)
     index = main_build(paths, workdir, results)
     checked = serve(index, paths, results)
     store, stamps = derive_phase(paths, workdir, index, results)
@@ -1275,6 +1664,7 @@ def main() -> int:
     verify_phase(index, workdir, results)
     gateway_phase(index, checked, results)
     rowgroup_multi_phase(store, results)
+    lm_phase(paths, results)
 
     launches = {"digest_sig (build)": results["digest_sig_launches"],
                 "pattern_scan (serve)": results["pattern_scan_launches"],
@@ -1287,7 +1677,11 @@ def main() -> int:
                 "pattern_scan_batch_multi (gateway)":
                     results["multi_launches"],
                 "pattern_scan_rowgroup_multi (gateway, row-group)":
-                    results["rowgroup_multi_launches"]}
+                    results["rowgroup_multi_launches"],
+                "flash_attention (LM prefill)":
+                    results["lm"]["flash_launches"]["prefill"],
+                "flash_attention (LM engine)":
+                    results["lm"]["flash_launches"]["engine"]}
     log(f"[launches] main paths: {launches}")
     if min(launches.values()) <= 0:
         raise RuntimeError("a kernel of a main path was never launched")

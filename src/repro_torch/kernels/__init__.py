@@ -5,6 +5,8 @@
 * :mod:`.digest_sig` — fused Adler-32 partials + n-gram hashes (index
   build, derive).
 * :mod:`.adler32` — Adler-32 partials (bulk digest verification).
+* :mod:`.flash_attention` — blocked GQA attention with an online
+  softmax (the LM's prefill and decode steps).
 
 Each kernel module holds the CUDA launch (sources under ``csrc/``,
 built by :mod:`._build`), a plain PyTorch version used for CPU tensors,

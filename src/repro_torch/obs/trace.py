@@ -32,7 +32,10 @@ Span names the gateway opens:
 
 ``enabled()`` reports the process-wide switch (``REPRO_OBS_TRACE``, off
 by default) that call sites read once per batch; the gateway traces
-every request whatever it says.
+every request whatever it says. The flat helpers :func:`add` and
+:func:`count` publish a duration or a count straight to the process
+registry: the LM serving engine records ``serve.prefill`` and
+``serve.decode`` through them when tracing is on.
 """
 from __future__ import annotations
 
@@ -44,8 +47,8 @@ import time as _time
 from time import perf_counter
 from typing import Optional, Tuple, Union
 
-__all__ = ["ROOT", "Span", "current_span", "enable", "enabled",
-           "perf_to_wall_us", "start_span", "use_span"]
+__all__ = ["ROOT", "Span", "add", "count", "current_span", "enable",
+           "enabled", "perf_to_wall_us", "start_span", "use_span"]
 
 _ENABLED = os.environ.get("REPRO_OBS_TRACE", "") not in ("", "0")
 
@@ -62,6 +65,25 @@ def enable(on: bool = True) -> bool:
     prev = _ENABLED
     _ENABLED = bool(on)
     return prev
+
+
+def add(name: str, seconds: float, n: int = 1) -> None:
+    """Record a span duration directly (for call sites that time with
+    ``perf_counter`` themselves): the ``span.<name>_s`` histogram and the
+    ``span.<name>.count`` counter of the process-default registry."""
+    from repro_torch import obs
+
+    reg = obs.registry()
+    reg.observe(f"span.{name}_s", seconds)
+    if n:
+        reg.counter_add(f"span.{name}.count", n)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name`` of the process-default registry."""
+    from repro_torch import obs
+
+    obs.registry().counter_add(name, n)
 
 
 # wall-clock anchor: spans time with perf_counter (monotonic, cheap) and

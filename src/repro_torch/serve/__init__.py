@@ -1,5 +1,7 @@
-"""Serving layer: the sharded archive query gateway.
+"""Serving layer: the sharded archive query gateway and the LM engine.
 
+* :mod:`.engine` — batched LM serving (KV-cache prefill + decode loop,
+  attention through the flash-attention kernel);
 * :mod:`.archive` — the async archive query gateway: admission queue
   with backpressure, request coalescing, cross-request kernel batching
   and a byte-budgeted record cache over :mod:`repro_torch.index`;
@@ -14,6 +16,7 @@
 from .archive import (ArchiveGateway, GatewayClosed, GatewayOverloaded,
                       GatewayShardDown, GatewayTimeout)
 from .cache import RecordCache, ShardedRecordCache
+from .engine import Request, ServeEngine
 from .metrics import GatewayMetrics, percentile
 from .shard import ShardScheduler
 
@@ -25,6 +28,8 @@ __all__ = [
     "GatewayTimeout",
     "GatewayMetrics",
     "RecordCache",
+    "Request",
+    "ServeEngine",
     "ShardedRecordCache",
     "ShardScheduler",
     "percentile",

@@ -1,7 +1,7 @@
 """``repro_torch`` and ``chip_smoke.py`` run without JAX and without the
 reference package (index build, CDX search, columnar derive and search,
-index verification, the sharded gateway), and the port's entry points
-default to the GPU."""
+index verification, the sharded gateway, LM forward and serving), and the
+port's entry points default to the GPU."""
 import ast
 import os
 import subprocess
@@ -18,8 +18,11 @@ PORT = ROOT / "src" / "repro_torch"
 # the port's code in scan units: each subpackage, and the package's
 # top-level modules together with chip_smoke.py
 SUBPACKAGES = ["columnar", "core", "data", "index", "kernels", "obs"]
-# subpackages scanned with another unit: the gateway serves the index
-ALSO_SCANNED = {"index": ["serve"]}
+# subpackages scanned with another unit: the gateway serves the index;
+# the LM stack (models, configs) runs the attention kernel; checkpoint
+# restore and the serving CLI read data from disk
+ALSO_SCANNED = {"index": ["serve"], "kernels": ["models", "configs"],
+                "data": ["train", "launch"]}
 
 _BLOCKED_RUN = r"""
 import importlib.abc, sys
@@ -74,6 +77,20 @@ with ArchiveGateway(index, shards=2, device="cpu") as gw:
         assert {(h.shard, h.offset): h.n_matches
                 for h in f.result(60).hits} == got
     assert gw.metrics.count("kernel_dispatches") > 0
+# the LM slice: a reduced forward and the serving engine
+import numpy as np
+import torch
+from repro_torch.configs import get_spec
+from repro_torch.models import transformer as tf
+from repro_torch.serve import Request, ServeEngine
+cfg = get_spec("fastwarc_lm").reduced
+params = tf.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                        device="cpu")
+logits, _ = tf.forward(params, np.ones((2, 8), np.int64), cfg)
+assert logits.shape == (2, 8, cfg.vocab) and bool(torch.isfinite(logits).all())
+engine = ServeEngine(cfg, params, batch_size=2, max_seq=32, device="cpu")
+done = engine.serve([Request(b"web", max_new_tokens=3), Request(b"x", 2)])
+assert [len(r.out_tokens) for r in done] == [3, 2] and all(r.done for r in done)
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")
        and sys.modules[m] is not None]
 assert not bad, bad
@@ -125,6 +142,7 @@ def _default_device_calls(entry: str, path: str) -> list:
     """Calls that must raise without a GPU unless ``device="cpu"`` is
     given; each parametrised entry also covers later slices' entry
     points of the same kind."""
+    from repro_torch import resolve_device
     from repro_torch.core.warc.checksum import verify_digests_bulk
     from repro_torch.index import (IndexQueryService, QueryEngine,
                                    build_index, verify_index)
@@ -133,16 +151,30 @@ def _default_device_calls(entry: str, path: str) -> list:
     from repro_torch.kernels.pattern_scan import (
         find_pattern_mask_batch, find_pattern_masks_multi,
         find_pattern_masks_multi_rowgroup)
-    from repro_torch.serve import ArchiveGateway
+    from repro_torch.configs import get_spec
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import ArchiveGateway, ServeEngine
+
+    cfg = get_spec("fastwarc_lm").reduced
+    gen = torch.Generator().manual_seed(0)
+
+    def cuda_default(shape):  # a tensor on the port's default device
+        return torch.zeros(shape, device=resolve_device("cuda"))
 
     if entry == "build_index":
-        return [lambda: build_index([path])]
+        return [lambda: build_index([path]),
+                lambda: tf.init_params(cfg, generator=gen),
+                lambda: tf.init_cache(cfg, 1, 8)]
+    params = tf.init_params(cfg, generator=gen, device="cpu")
     index = build_index([path], device="cpu")
     group = np.zeros((2, 16 + 128), np.uint8)
     return {"QueryEngine": [lambda: QueryEngine(index),
-                            lambda: ArchiveGateway(index, shards=2)],
+                            lambda: ArchiveGateway(index, shards=2),
+                            lambda: ServeEngine(cfg, params)],
             "IndexQueryService": [lambda: IndexQueryService(index),
-                                  lambda: verify_index(index)],
+                                  lambda: verify_index(index),
+                                  lambda: tf.params_from_jax({})],
             "digest_signature_batch": [
                 lambda: digest_signature_batch([b"abcd"]),
                 lambda: adler32_batch([b"abcd"]),
@@ -151,7 +183,9 @@ def _default_device_calls(entry: str, path: str) -> list:
                 lambda: find_pattern_mask_batch([b"abcd"], b"b"),
                 lambda: find_pattern_masks_multi([b"abcd"], [b"b"]),
                 lambda: find_pattern_masks_multi_rowgroup(group, [3],
-                                                          [b"b"])]}[entry]
+                                                          [b"b"]),
+                lambda: flash_attention(*(cuda_default((1, 2, 4, 64)),) * 3)],
+            }[entry]
 
 
 @pytest.mark.parametrize("entry", ["build_index", "QueryEngine",
