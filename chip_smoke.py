@@ -55,13 +55,19 @@ plain PyTorch version:
     bytes, ``max_new_tokens=64``, each first token equal to the argmax of
     ``forward``'s last-position logits on the card, continued greedily
     over the tokens the engine generates unrecorded while it prefills
-    the batch's longer prompts.
+    the batch's longer prompts; (c) the reduced ``fastwarc_lm`` (d_head
+    32) on the card, its forward equal to the CPU's and its engine's
+    greedy tokens equal to the CPU engine's.
 
-Phase 4 also holds ``flash_attention_bhsd`` against its plain version at
-the prefill shape (f32), decode ``Sq = 1`` over cache views of 1 and
-1,000 keys, InternLM2-1.8B's attention in bf16, a non-causal shape,
-``Sq = 256, Sk = 128`` causal (rows with no key exactly 0) and
-``Sq = Sk = 37``, and times each against ``scaled_dot_product_attention``.
+Phase 4 also holds ``flash_attention_bhsd`` against its plain version on
+each of its three paths: f32 prefill (CUDA cores) at the prefill shape,
+a non-causal shape, ``Sq = Sk = 37`` and head dims 32 and 16; the
+split-KV decode (``Sq = 1``) over cache views of 1, 256 and 1,000 keys
+(f32) and 2,000 keys (bf16, d_head 128); bf16 prefill on tensor cores
+(``wgmma`` + TMA) at InternLM2-1.8B's attention and head dims 32 and 16;
+``Sq = 256, Sk = 128`` causal in both types (rows with no key exactly
+0). Each case is timed beside its plain version and
+``scaled_dot_product_attention``.
 
 The launch count of each kernel is set to 0 before each path (phases 5,
 6, 7, 8, 9, 10, 11) and read after it; every kernel of a path must have
@@ -600,15 +606,23 @@ def flash_bound(nbytes: int, ops: int, dtype: torch.dtype
 
 
 # label, B, H, Hkv, Sq, Sk, D, dtype, causal; "decode" cases read k/v as
-# views of a [B, Hkv, 1024, D] cache, as decode_step does
+# views of a [B, Hkv, 1024, D] cache (2048 past 1,024 keys), as
+# decode_step does; "fully masked rows" cases have rows with no key
 FLASH_CASES = (
     ("prefill", 8, 12, 4, 1024, 1024, 64, torch.float32, True),
     ("decode Sk=1", 8, 12, 4, 1, 1, 64, torch.float32, True),
+    ("decode Sk=256", 8, 12, 4, 1, 256, 64, torch.float32, True),
     ("decode Sk=1000", 8, 12, 4, 1, 1000, 64, torch.float32, True),
+    ("decode bf16 Sk=2000", 8, 16, 8, 1, 2000, 128, torch.bfloat16, True),
     ("internlm2-1.8b bf16", 1, 16, 8, 2048, 2048, 128, torch.bfloat16, True),
     ("non-causal", 2, 12, 4, 512, 700, 64, torch.float32, False),
     ("fully masked rows", 1, 4, 2, 256, 128, 64, torch.float32, True),
+    ("fully masked rows bf16", 1, 4, 2, 256, 128, 64, torch.bfloat16, True),
     ("ragged 37", 2, 12, 4, 37, 37, 64, torch.float32, True),
+    ("d32", 8, 4, 2, 512, 512, 32, torch.float32, True),
+    ("d32 bf16", 8, 4, 2, 512, 512, 32, torch.bfloat16, True),
+    ("d16", 8, 4, 2, 512, 512, 16, torch.float32, True),
+    ("d16 bf16", 8, 4, 2, 512, 512, 16, torch.bfloat16, True),
 )
 
 
@@ -616,9 +630,12 @@ def flash_checks(results: dict) -> None:
     """flash_attention_bhsd on the card against its plain version (rtol
     1e-4 / atol 1e-5 in f32, 2e-2 in bf16: the reference's kernel-test
     tolerances) at each case, timed beside the plain version and
-    ``scaled_dot_product_attention`` (SDPA's causal mask is top-left
-    aligned, so a causal case with Sq != Sk has no library time; decode
-    is SDPA non-causal over the valid prefix, the same function)."""
+    ``scaled_dot_product_attention``: ``is_causal`` where Sq == Sk;
+    decode is SDPA non-causal over the valid prefix, the same function;
+    a causal case with Sq != Sk passes the bottom-right mask as
+    ``attn_mask`` (SDPA's own causal mask is top-left aligned), its error
+    taken on the rows that have keys. Each case synchronises before its
+    check, so a fault stops the run where it happened."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
@@ -627,8 +644,8 @@ def flash_checks(results: dict) -> None:
     for label, b, h, hkv, sq, sk, d, dt, causal in FLASH_CASES:
         q = torch.randn((b, h, sq, d), generator=gen, device="cuda").to(dt)
         if label.startswith("decode"):
-            cache = torch.randn((2, b, hkv, 1024, d), generator=gen,
-                                device="cuda").to(dt)
+            cache = torch.randn((2, b, hkv, 1024 if sk <= 1024 else 2048, d),
+                                generator=gen, device="cuda").to(dt)
             k, v = cache[0, :, :, :sk], cache[1, :, :, :sk]
         else:
             k, v = (torch.randn((b, hkv, sk, d), generator=gen,
@@ -646,20 +663,25 @@ def flash_checks(results: dict) -> None:
         except AssertionError as exc:
             raise RuntimeError(f"flash_attention {label}: card != plain: "
                                f"{exc}") from None
-        if label == "fully masked rows" and (
+        if label.startswith("fully masked rows") and (
                 got[:, :, :sq - sk].abs().max() != 0
                 or got[:, :, sq - sk:].abs().min() == 0):
-            raise RuntimeError("flash_attention: rows with no key != 0")
+            raise RuntimeError(f"flash_attention {label}: rows with no key "
+                               f"!= 0")
         ms = time_ms(lambda: fa.flash_attention_bhsd(q, k, v, causal=causal))
         pms = time_ms(lambda: attention_plain(q, k, v, causal=causal), 20)
-        lib = lib_err = None
-        if not causal or sq == sk or sq == 1:
-            def sdpa():
-                return F.scaled_dot_product_attention(
-                    q, k, v, is_causal=causal and sq == sk and sq > 1,
-                    enable_gqa=True)
-            lib = time_ms(sdpa)
-            lib_err = float((sdpa().float() - want.float()).abs().max())
+        mask = None
+        if causal and sq != sk and sq > 1:
+            mask = torch.ones((sq, sk), dtype=torch.bool,
+                              device="cuda").tril(sk - sq)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask,
+                is_causal=causal and sq == sk and sq > 1, enable_gqa=True)
+        lib = time_ms(sdpa)
+        lib_err = float((torch.nan_to_num(sdpa().float()) - want.float())
+                        .abs().max())
         nbytes, ops = flash_cost(b, h, hkv, sq, sk, d, q.element_size(),
                                  causal)
         bnd, by = flash_bound(nbytes, ops, dt)
@@ -671,10 +693,8 @@ def flash_checks(results: dict) -> None:
         log(f"[kernels] flash_attention {label} q{[b, h, sq, d]} "
             f"kv{[b, hkv, sk, d]} {str(dt)[6:]} causal={causal}: {ms:.4g} "
             f"ms/launch, bound {bnd:.4g} ms ({by}), plain {pms:.4g} ms, "
-            f"SDPA {'%.4g ms' % lib if lib is not None else 'n/a'}; max "
-            f"|kernel - plain| = {e:.3g}"
-            + (f", |SDPA - plain| = {lib_err:.3g}" if lib_err is not None
-               else ""))
+            f"SDPA {lib:.4g} ms; max |kernel - plain| = {e:.3g}, "
+            f"|SDPA - plain| = {lib_err:.3g}")
     results["flash"] = out
     results["max_abs_err"]["flash_attention"] = err["float32"]
     results["max_abs_err"]["flash_attention_bf16"] = err["bfloat16"]
@@ -1258,7 +1278,8 @@ def decode_profile(params, cfg, batch: int, seq: int, length: int) -> dict:
         if t > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
             by_kernel[e.key] = by_kernel.get(e.key, 0.0) + t / 1e6
     device = sum(by_kernel.values())
-    flash = sum(t for k, t in by_kernel.items() if "flash_fwd_kernel" in k)
+    flash = sum(t for k, t in by_kernel.items()
+                if "flash_fwd" in k or "flash_decode" in k)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
     return {"steps": 16, "cache_length": length, "wall_s": wall,
             "device_s": device if device else None,
@@ -1430,8 +1451,53 @@ def lm_phase(paths: list[str], results: dict) -> None:
         f" over the engine's time); {engine_launches} flash_attention launches; "
         f"peak device memory {peak} bytes; every first token == forward's "
         f"greedy argmax ({chain_forwards} check forwards)")
+    results["lm"]["reduced"] = reduced_lm_check(payloads)
     results["lm"]["phase_s"] = time.perf_counter() - t_phase
     log(f"[lm] phase 11 in {results['lm']['phase_s']:.3f} s")
+
+
+def reduced_lm_check(payloads: list[bytes]) -> dict:
+    """(c) The reduced fastwarc_lm as its spec defines it (d_head 32) on
+    the card: forward over 2 x 77 seeded tokens within rtol/atol 2e-4 of
+    the CPU forward with the same seeded weights, and the engine's greedy
+    tokens for 4 corpus prompts equal to the CPU engine's."""
+    cfg = get_spec("fastwarc_lm").reduced
+    gpu = tf.init_params(cfg, generator=torch.Generator().manual_seed(SEED))
+    cpu = tf.init_params(cfg, generator=torch.Generator().manual_seed(SEED),
+                         device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 12).integers(
+        0, cfg.vocab, (2, 77)))
+    before = fa.launches
+    with torch.inference_mode():
+        got, _ = tf.forward(gpu, tokens.cuda(), cfg)
+        torch.cuda.synchronize()
+        want, _ = tf.forward(cpu, tokens, cfg)
+    diff = float((got.cpu() - want).abs().max())
+    try:
+        torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+    except AssertionError as exc:
+        raise RuntimeError(f"reduced {cfg.name} (d_head {cfg.d_head}): card "
+                           f"!= CPU forward: {exc}") from None
+    prompts = [p[:48] for p in payloads[:4]]
+    outs = []
+    for params, dev in ((gpu, "cuda"), (cpu, "cpu")):
+        engine = ServeEngine(cfg, params, batch_size=2, max_seq=96,
+                             temperature=0.0, device=dev)
+        outs.append([r.out_tokens for r in engine.serve(
+            [Request(p, max_new_tokens=16) for p in prompts])])
+    torch.cuda.synchronize()
+    launches = fa.launches - before
+    if outs[0] != outs[1] or launches <= 0:
+        raise RuntimeError(f"reduced {cfg.name}: engine tokens card "
+                           f"{outs[0]} != CPU {outs[1]} (or no launch: "
+                           f"{launches})")
+    log(f"[lm] (c) reduced {cfg.name} (d_head {cfg.d_head}, {cfg.n_heads} "
+        f"q / {cfg.n_kv_heads} kv heads) on the card: forward [2, 77] == CPU "
+        f"forward, max |card - CPU| = {diff:.3g}; greedy tokens of 4 prompts "
+        f"== the CPU engine's ({sum(map(len, outs[0]))} tokens); "
+        f"{launches} flash_attention launches")
+    return {"d_head": cfg.d_head, "max_abs_diff_vs_cpu": diff,
+            "engine_tokens": sum(map(len, outs[0])), "launches": launches}
 
 
 def timed_err(name: str, kernel, plain) -> int:
@@ -1537,9 +1603,9 @@ def kernel_line(results: dict, store: ColumnStore) -> dict:
     ams = time_ms(lambda: ad.adler32_partials_batch(ax))
     aplain = time_ms(lambda: ad.adler32_plain(ax), 20)
     b_ad, by_ad = bound(*adler_cost(arows, awidth))
-    # flash_attention: phase 4's prefill and decode cases, checked on the
-    # inputs they were timed on
-    fl, fd = results["flash"]["prefill"], results["flash"]["decode Sk=1000"]
+    # flash_attention: phase 4's prefill case heads the entry, every case
+    # beside it, each checked on the inputs it was timed on
+    fl = results["flash"]["prefill"]
     return {"kernels": [
         {"name": "pattern_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/pattern_scan/csrc/pattern_scan.cu",
@@ -1610,9 +1676,10 @@ def kernel_line(results: dict, store: ColumnStore) -> dict:
          "shape": [fl["shape_q"], fl["shape_kv"]], "dtype": "float32",
          "max_abs_err_bf16": err["flash_attention_bf16"],
          "launches_by_phase": results["lm"]["flash_launches"],
-         "decode": {k: fd[k] for k in ("shape_q", "shape_kv", "ms",
-                                       "plain_ms", "bound_ms", "bound_by",
-                                       "library_ms")}},
+         "cases": {label: {k: c[k] for k in (
+             "shape_q", "shape_kv", "dtype", "causal", "ms", "plain_ms",
+             "bound_ms", "bound_by", "library_ms", "max_abs_err")}
+             for label, c in results["flash"].items()}},
     ]}
 
 

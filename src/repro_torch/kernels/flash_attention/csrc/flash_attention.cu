@@ -3,118 +3,196 @@
 // Replaces: src/repro/kernels/flash_attention/flash_attention.py :
 //           flash_attention_bhsd (Pallas body _flash_kernel).
 //   out[b, h, i] = softmax_j(q[b, h, i] . k[b, h / G, j] / sqrt(D)) v[b, h / G, j]
-//   with G = H / Hkv query heads per KV head, fp32 math whatever the load
-//   type (f32 or bf16), the output in the type of q. Causal masking keeps
-//   key j for query row i when j <= i + (Sk - Sq): the bottom-right
-//   diagonal, so Sq = 1 over a cache of Sk keys sees every key. Masked
-//   scores are -1e30 and take no weight; a row with no key left (causal,
-//   Sk < Sq) has denominator 0, taken as 1, and is written as 0.
+//   with G = H / Hkv query heads per KV head, fp32 softmax and accumulation
+//   whatever the load type (f32 or bf16), the output in the type of q, and
+//   D one of 16, 32, 64, 128. Causal masking keeps key j for query row i
+//   when j <= i + (Sk - Sq): the bottom-right diagonal, so Sq = 1 over a
+//   cache of Sk keys sees every key. Masked scores take no weight; a row
+//   with no key left (causal, Sk < Sq) has denominator 0 and is written as 0.
 //
-// Bound on the H100 at the main path's shapes (fastwarc_lm, D = 64, f32):
-//   prefill, q [8, 12, 1024, 64], k/v [8, 4, 1024, 64], causal: half of
-//   4 B H Sq Sk D = 12.9 GFLOP against 67 MB, so the fp32 CUDA cores
-//   (67 TFLOP/s) bound it at ~0.19 ms; decode, q [8, 12, 1, 64] over
-//   Sk <= 1024 cached keys: 16.8 MB of K/V and 2 flops a byte, so device
-//   memory (3.35 TB/s) bounds it at ~5 us.
+// GQA rows. Every path works on the G * Sq "virtual" query rows of one
+// (batch, KV head) pair: row g is query head kvh * G + g / Sq at position
+// g % Sq. So every K/V tile a block brings in serves all the group's heads
+// that fall in its rows, and decode (Sq = 1) fills a tile with the group's
+// G heads instead of one query row.
 //
-// Design. The Pallas grid walks the KV blocks as its innermost, sequential
-// grid axis and carries the running max, denominator and accumulator in
-// VMEM from step to step. Blocks of a CUDA grid run in no order, so here
-// one thread block owns a tile of query rows and loops over the KV tiles
-// itself:
-//   * GQA: a block serves query rows of one (batch, KV head) pair. Its rows
-//     are taken from the group's G * Sq "virtual" rows (row g is query
-//     head kvh * G + g / Sq at position g % Sq), so every K/V tile a block
-//     loads from device memory serves all the group's heads that fall in
-//     its tile. For decode (G * Sq <= 16) one block of 16 rows covers the
-//     whole group: each K/V tile is read once per group, not once per
-//     query head, and no 64-row tile is wasted on a single query row.
-//   * Tiles: 64 keys of K and V per step in shared memory, converted to
-//     fp32 as they are loaded (16-byte loads for f32, 8-byte for bf16,
-//     all of a thread's loads of a tile in flight at once);
-//     the query tile (pre-scaled by 1/sqrt(D)) stays in shared memory for
-//     the whole loop. Rows are padded by 4 floats so the float4 reads of
-//     a quarter-warp hit distinct banks.
-//   * Registers: 256 threads as 16 x 16; thread (ty, tx) computes the
-//     scores of its RPT rows (ty * RPT + a) against keys tx + 16 c
-//     (c = 0..3) with float4 reads of Q and K, 16 FMAs per 8 shared loads
-//     per d-step of 4. Row max and row sum reduce over the 16 lanes of a
-//     half-warp with shuffles; the running max, denominator and the
-//     thread's D / 16 output columns of each of its rows stay in
-//     registers. P goes through shared memory to the P V product.
-//   * Causal: KV tiles wholly above the diagonal of the block's last row
-//     are never loaded; the diagonal tile is masked per element, as are
-//     keys past Sk and rows past the group's last row (ragged Sq, Sk need
-//     no padding).
-//   * The output is written once, after the last tile.
-// A simple kernel: no tensor cores, no TMA or cp.async pipelining, no
-// split of long KV ranges across blocks; those are the next steps.
+// Three paths, chosen by the C entry point from shape and type:
+//
+// B1. Split-KV decode, CUDA cores (G * Sq <= 16, f32 and bf16).
+//   Bound: device memory. Decode reads every cached key and value once
+//   and does ~2 flops a byte (fastwarc_lm, q [8, 12, 1, 64] over 1,000
+//   keys: 16.4 MB, ~5 us at 3.35 TB/s), so tensor cores cannot help;
+//   filling the card and streaming K and V at full width does. One block
+//   a (batch, KV head) left 32 blocks on 132 SMs, each walking its whole
+//   cache alone. Here the key range [0, Sk) is cut into n_splits chunks
+//   of whole 64-key tiles, as even as tiles allow (n_splits chosen by the
+//   wrapper from the shape: at most one wave of batch * Hkv * n_splits
+//   blocks, one an SM, and at least 4 tiles a chunk), grid (n_splits,
+//   B * Hkv). A key row is read in 16-byte chunks by neighbouring threads
+//   straight into registers (no shared-memory staging; a tile-per-row-
+//   block layout would have every warp re-read all of K and V from shared
+//   memory for only G live rows), the next step's rows in flight under
+//   this step's work; the query rows stay in registers (padded to 4 or
+//   16). Each warp runs its own online softmax over its keys, with no
+//   block barrier until the warps' partials are merged at the end. Each
+//   block writes its rows' running max m, denominator l and unnormalised
+//   accumulator (f32) to a workspace the wrapper allocates; the kernel
+//   allocates nothing.
+//   The last block of a (batch, KV head) to finish (__threadfence, then an
+//   atomicAdd on a per-pair counter in a zeroed int32 workspace, which
+//   that block sets back to 0) merges the partials in split order, so the
+//   output is the same bit for bit from run to run; a split with no live
+//   key (l = 0) adds nothing. One launch a call, strided cache views as
+//   they are.
+//
+// B2. Tensor-core prefill (bf16, G * Sq > 16): wgmma and TMA.
+//   Bound: bf16 tensor-core operations (InternLM2-1.8B, q [1, 16, 2048,
+//   128], k/v [1, 8, 2048, 128], causal: 17.2 GFLOP, ~17 us at 989
+//   TFLOP/s). One warpgroup (128 threads) owns 64 virtual rows. Q is
+//   read once, straight from device memory into registers in the A-operand
+//   order of wgmma (D / 16 k16 fragments a thread: 4 to 32 registers), so
+//   Q K^T reads only K from shared memory (a ragged Sq tile can straddle
+//   two heads, which a TMA box could not gather anyway). K and V tiles of
+//   64 keys come in by TMA, issued by one thread, into one K and one V
+//   buffer with an mbarrier each; a buffer is refilled as soon as every
+//   warp is done with it, so the next K tile lands under this tile's
+//   softmax and P V and the next V tile under the next Q K^T, and a block
+//   takes at most 33 KB of shared memory. The tensor maps describe the
+//   strided [B, Hkv, Sk, D] views (no copy) and reach the kernel as
+//   __grid_constant__ parameters. Per tile:
+//     S = Q K^T   wgmma m64n64k16, Q from registers, K K-major in shared
+//                 memory, D / 16 steps;
+//     softmax     on the f32 accumulator fragment in registers: thread t
+//                 of warp w holds rows 16 w + t / 4 (+ 8), columns
+//                 8 j + 2 (t % 4) (+ 1); the causal and Sk masks are
+//                 computed per register on the tiles that need them; the
+//                 row max and sum reduce over the 4 lanes of a row; one
+//                 FFMA and one ex2.approx an element;
+//     O += P V    P rounded to bf16 in registers, in the A-operand order of
+//                 wgmma (the accumulator fragment of two 8-key chunks is
+//                 one 16-key A fragment), wgmma m64nDk16 with A from
+//                 registers and V as the MN-major (transposed) B operand
+//                 straight from the TMA tile.
+//   Timed on the H100 at InternLM2-1.8B's shape while this design was
+//   chosen, each of these was slower: Q in swizzled shared memory (both
+//   wgmma operands there), 2-stage K/V rings (fewer blocks an SM at
+//   D = 128), two warpgroups sharing each tile, and a software pipeline
+//   running the next tile's Q K^T under this tile's softmax.
+//   Shared-memory layout, by D: a K-major bf16 row of D elements is one
+//   swizzle atom row of 32 (D = 16, SW32), 64 (D = 32, SW64) or 128 bytes
+//   (D = 64, SW128), or two SW128 atom columns (D = 128); the TMA maps use
+//   the same swizzle, and the wgmma descriptors the same layout type,
+//   with SBO = 8 rows of the atom and, for V, LBO = one 64-key atom column.
+//   Row tiles run heaviest first (most keys under the causal mask).
+//   f32 accumulators throughout; rows with no key are written as 0.
+//
+// B3. CUDA-core prefill (f32, G * Sq > 16).
+//   Bound: the fp32 CUDA cores (fastwarc_lm, q [8, 12, 1024, 64], k/v
+//   [8, 4, 1024, 64], causal: 12.9 GFLOP, ~0.19 ms at 67 TFLOP/s). TF32
+//   tensor cores keep about three decimal digits, too few for the LM's
+//   2e-4 parity with the CPU forward, so f32 stays on CUDA cores. One
+//   block of 256 threads (16 x 16) owns 64 virtual rows and loops over
+//   64-key tiles of K and V converted to fp32 in shared memory (rows padded
+//   by 4 floats so float4 reads of a quarter-warp hit distinct banks); the
+//   scaled query tile stays in shared memory. Thread (ty, tx) computes the
+//   scores of its RPT rows against keys tx + 16 c; row max and sum reduce
+//   over a half-warp with shuffles; the running max, denominator and the
+//   thread's D / 16 output columns of each row stay in registers (a float4
+//   chunk for D >= 64, two or one columns for D = 32, 16); P goes through
+//   shared memory to the P V product. KV tiles wholly above the diagonal
+//   of the block's last row are never loaded.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
 #include <initializer_list>
+#include <type_traits>
 
 namespace {
 
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kBc = 64;        // keys per KV tile
+constexpr int kThreads = 256;  // CUDA-core paths B1, B3 (B3 as 16 x 16)
+constexpr int kBc = 64;        // keys per KV tile, every path
 constexpr int kPad = 4;        // floats of padding per shared-memory row
+constexpr int kDecodeRows = 16;
 constexpr float kNegInf = -1e30f;
+
+// ---------------------------------------------------------------------------
+// CUDA-core paths (B1, B3)
+// ---------------------------------------------------------------------------
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 hi = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
 
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<const uint32_t*>(&lo);
-  raw.y = *reinterpret_cast<const uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = raw;
+// N (1, 2 or 4) consecutive output values
+template <int N>
+__device__ __forceinline__ void store_out(float* p, const float* v) {
+  if constexpr (N == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (N == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
+  }
+}
+
+// N consecutive floats of shared memory
+template <int N>
+__device__ __forceinline__ void load_smem(const float* p, float* v) {
+  if constexpr (N == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x;
+    v[1] = t.y;
+    v[2] = t.z;
+    v[3] = t.w;
+  } else if constexpr (N == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x;
+    v[1] = t.y;
+  } else {
+    v[0] = *p;
+  }
 }
 
 __device__ __forceinline__ float comp(const float4& v, int u) {
   return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
 }
 
-template <int D, int RPT>
+constexpr int kRpt = 4;  // B3: rows a thread, 64 a block
+
+template <int D>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (16 * RPT * (D + kPad) + 2 * kBc * (D + kPad) +
-                          16 * RPT * (kBc + kPad));
+  return sizeof(float) * (16 * kRpt * (D + kPad) + 2 * kBc * (D + kPad) +
+                          16 * kRpt * (kBc + kPad));
 }
 
-// q/k/v strides are in elements (batch, head, sequence); the last axis is
-// contiguous. out is a contiguous [B, H, Sq, D] tensor.
-template <int D, int RPT, typename T>
+// B3. q/k/v strides are in elements (batch, head, sequence); the last
+// axis is contiguous. out is a contiguous [B, H, Sq, D] tensor. Grid
+// (row tiles, B * Hkv); every key up to the block's diagonal.
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int H,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out, int H,
                  int Hkv, int Sq, int Sk, int causal, float scale,
                  int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb,
                  int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh,
                  int64_t v_ss) {
+  constexpr int RPT = kRpt;
   constexpr int kBr = 16 * RPT;     // query rows per block
   constexpr int kLd = D + kPad;     // row stride of Qs, Ks, Vs (floats)
   constexpr int kLdP = kBc + kPad;  // row stride of Ps
   constexpr int kC = D / 4;         // float4 chunks per row
-  constexpr int kNch = D / 64;      // float4 output chunks per thread
+  constexpr int kCols = D / 16;     // output columns a thread owns per row
+  constexpr int kVec = kCols < 4 ? kCols : 4;  // ... in chunks of kVec
+  constexpr int kNch = kCols / kVec;
   constexpr int kLoads = kBc * kC / kThreads;  // K (and V) float4s a thread
+  static_assert(kLoads * kThreads == kBc * kC, "D must be 16, 32, 64, 128");
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);  // [kBr][kLd]
   float* Ks = Qs + kBr * kLd;                   // [kBc][kLd]
@@ -130,10 +208,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int rows = group * Sq;  // virtual rows of this (batch, KV head)
   const int g0 = blockIdx.x * kBr;
   const int offset = Sk - Sq;
-  const T* kb = k + b * k_sb + kvh * k_sh;
-  const T* vb = v + b * v_sb + kvh * v_sh;
+  const float* kb = k + b * k_sb + kvh * k_sh;
+  const float* vb = v + b * v_sb + kvh * v_sh;
 
-  // the query tile, scaled, fp32; rows past the group's last are zero
+  // the query tile, scaled; rows past the group's last are zero
   for (int i = tid; i < kBr * kC; i += kThreads) {
     const int r = i / kC;
     const int c = i - r * kC;
@@ -164,16 +242,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int max_pos = (g0 / Sq != g_last / Sq) ? Sq - 1 : g_last % Sq;
   const int kv_end = causal ? min(Sk, max_pos + offset + 1) : Sk;
 
-  float m[RPT], l[RPT], acc[RPT][kNch][4];
+  float m[RPT], l[RPT], acc[RPT][kCols];
 #pragma unroll
   for (int a = 0; a < RPT; ++a) {
     m[a] = kNegInf;
     l[a] = 0.f;
 #pragma unroll
-    for (int n = 0; n < kNch; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[a][n][e] = 0.f;
-    }
+    for (int c = 0; c < kCols; ++c) acc[a][c] = 0.f;
   }
 
   for (int k0 = 0; k0 < kv_end; k0 += kBc) {
@@ -236,7 +311,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int key = k0 + tx + 16 * c;
-        ok[c] = key < Sk && (!causal || key <= pos_a[a] + offset);
+        ok[c] = key < kv_end && (!causal || key <= pos_a[a] + offset);
         if (!ok[c]) s[a][c] = kNegInf;
         mx = fmaxf(mx, s[a][c]);
       }
@@ -259,15 +334,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       l[a] = l[a] * corr + sum;
       m[a] = m_new;
 #pragma unroll
-      for (int n = 0; n < kNch; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[a][n][e] *= corr;
-      }
+      for (int c = 0; c < kCols; ++c) acc[a][c] *= corr;
     }
     // a row's P is written and read by the 16 lanes of one half-warp
     __syncwarp();
 
-    // O += P V: the thread's rows, float4 columns tx + 16 n
+    // O += P V: the thread's rows, columns (tx + 16 n) * kVec + e
 #pragma unroll 4
     for (int j = 0; j < kBc; j += 4) {
       float4 pa[RPT];
@@ -278,15 +350,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int u = 0; u < 4; ++u) {
 #pragma unroll
         for (int n = 0; n < kNch; ++n) {
-          const float4 vv = *reinterpret_cast<const float4*>(
-              Vs + (j + u) * kLd + (tx + 16 * n) * 4);
+          float vv[kVec];
+          load_smem<kVec>(Vs + (j + u) * kLd + (tx + 16 * n) * kVec, vv);
 #pragma unroll
           for (int a = 0; a < RPT; ++a) {
             const float p = comp(pa[a], u);
-            acc[a][n][0] = fmaf(p, vv.x, acc[a][n][0]);
-            acc[a][n][1] = fmaf(p, vv.y, acc[a][n][1]);
-            acc[a][n][2] = fmaf(p, vv.z, acc[a][n][2]);
-            acc[a][n][3] = fmaf(p, vv.w, acc[a][n][3]);
+#pragma unroll
+            for (int e = 0; e < kVec; ++e)
+              acc[a][n * kVec + e] = fmaf(p, vv[e], acc[a][n * kVec + e]);
           }
         }
       }
@@ -299,53 +370,1043 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (!live_a[a]) continue;
     const int g = g0 + ty * RPT + a;
     const int h = kvh * group + g / Sq;
-    const float denom = l[a] == 0.f ? 1.f : l[a];
-    T* orow = out + ((static_cast<int64_t>(b) * H + h) * Sq + pos_a[a]) * D;
+    const float inv = 1.f / (l[a] == 0.f ? 1.f : l[a]);
+    float* orow =
+        out + ((static_cast<int64_t>(b) * H + h) * Sq + pos_a[a]) * D;
 #pragma unroll
     for (int n = 0; n < kNch; ++n) {
-      store4(orow + (tx + 16 * n) * 4,
-             make_float4(acc[a][n][0] / denom, acc[a][n][1] / denom,
-                         acc[a][n][2] / denom, acc[a][n][3] / denom));
+      float o[kVec];
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) o[e] = acc[a][n * kVec + e] * inv;
+      store_out<kVec>(orow + (tx + 16 * n) * kVec, o);
     }
   }
 }
 
-template <int D, int RPT, typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int H, int Hkv, int Sq, int Sk, int causal, const int64_t* st,
-           cudaStream_t stream) {
-  auto kern = flash_fwd_kernel<D, RPT, T>;
-  constexpr size_t smem = smem_bytes<D, RPT>();
+// ---------------------------------------------------------------------------
+// B1: split-KV decode
+// ---------------------------------------------------------------------------
+
+constexpr int kDecWarps = kThreads / 32;
+
+// Floats of one split's partial in the B1 workspace: m[16], l[16],
+// acc[16][D].
+template <int D>
+__host__ __device__ constexpr int partial_floats() {
+  return kDecodeRows * (D + 2);
+}
+
+// a chunk of a row as floats: 16 bytes of f32 (4) or bf16 (8), or 8
+// bytes of bf16 (4)
+__device__ __forceinline__ void unpack(const uint4& r, float (&x)[4]) {
+  x[0] = __uint_as_float(r.x);
+  x[1] = __uint_as_float(r.y);
+  x[2] = __uint_as_float(r.z);
+  x[3] = __uint_as_float(r.w);
+}
+
+__device__ __forceinline__ void unpack(const uint4& r, float (&x)[8]) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void unpack(const uint2& r, float (&x)[4]) {
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.y));
+  x[0] = lo.x;
+  x[1] = lo.y;
+  x[2] = hi.x;
+  x[3] = hi.y;
+}
+
+// a chunk of floats stored as T: 4 or 8 values
+__device__ __forceinline__ void store_chunk(float* p, const float (&x)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+}
+
+__device__ __forceinline__ void store_chunk(__nv_bfloat16* p,
+                                            const float (&x)[4]) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(x[0], x[1]);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(x[2], x[3]);
+  uint2 r;
+  r.x = *reinterpret_cast<uint32_t*>(&lo);
+  r.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = r;
+}
+
+__device__ __forceinline__ void store_chunk(__nv_bfloat16* p,
+                                            const float (&x)[8]) {
+  uint4 r;
+  uint32_t* w = &r.x;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
+    w[i] = *reinterpret_cast<uint32_t*>(&v);
+  }
+  *reinterpret_cast<uint4*>(p) = r;
+}
+
+// elements of a thread's chunk of a row: 16 bytes, but 8 for bf16 with
+// 16 rows, whose 8-element query and output chunks would not fit in
+// registers
+template <typename T, int MR>
+__host__ __device__ constexpr int dec_elems() {
+  return sizeof(T) == 2 && MR <= 4 ? 8 : 4;
+}
+
+// shared memory of the decode kernel: the warps' accumulators, merged at
+// the end
+template <int D, int MR>
+constexpr size_t dec_smem_bytes() {
+  return sizeof(float) * kDecWarps * MR * D;
+}
+
+// Grid (n_splits, B * Hkv): the block owns all G * Sq <= MR rows of its
+// (batch, KV head) and the 64-key tiles [split * tiles / n_splits,
+// (split + 1) * tiles / n_splits) of the keys. A key row is read in
+// chunks of 16 bytes (4 f32 or 8 bf16 values; 8 bytes of bf16 for 16
+// rows) by neighbouring threads, so a warp reads whole rows, coalesced,
+// from device memory into registers. The block walks its keys in steps
+// of 4 keys a key lane; the next step's K and V rows are requested before
+// this step's are used. Each warp keeps its own online softmax over its
+// keys, in registers: the scores (a chunk's dot products with the rows'
+// query chunks, reduced over the key's threads by shuffles), the row max
+// and sum over the warp's key lanes (shuffles), and each thread's chunk of
+// P V over its key lane's keys. No block barrier until the end, where the
+// 8 warps' partials (max, sum, accumulator) are merged through shared
+// memory. ws and counters are the wrapper's workspace (unused when
+// n_splits == 1).
+template <int D, typename T, int MR>
+__global__ void __launch_bounds__(kThreads)
+flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, T* __restrict__ out, int H,
+                    int Hkv, int Sq, int Sk, int causal, float scale,
+                    int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb,
+                    int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh,
+                    int64_t v_ss, int tiles, float* __restrict__ ws,
+                    int* __restrict__ counters) {
+  constexpr int kE = dec_elems<T, MR>();   // elements a chunk
+  constexpr int kTPK = D / kE;             // threads a key row
+  constexpr int kLanes = kThreads / kTPK;  // key lanes of the block
+  constexpr int kStep = 4 * kLanes;        // keys a step
+  using Raw = typename std::conditional<kE * sizeof(T) == 16, uint4,
+                                        uint2>::type;
+  extern __shared__ float4 smem4[];
+  float* red = reinterpret_cast<float*>(smem4);  // [kDecWarps][MR][D]
+  __shared__ float wm[kDecWarps][MR], wl[kDecWarps][MR];
+  __shared__ int s_last;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int c = tid % kTPK;   // the thread's chunk: columns kE c ..
+  const int kl = tid / kTPK;  // its key lane
+  const int group = H / Hkv;
+  const int b = blockIdx.y / Hkv;
+  const int kvh = blockIdx.y - b * Hkv;
+  const int rows = group * Sq;
+  const int offset = Sk - Sq;
+  const T* kb = k + b * k_sb + kvh * k_sh + c * kE;
+  const T* vb = v + b * v_sb + kvh * v_sh + c * kE;
+  const int64_t sp = blockIdx.x, n_splits = gridDim.x;
+  const int kv_lo = static_cast<int>(sp * tiles / n_splits) * kBc;
+  const int kv_hi =
+      min(Sk, static_cast<int>((sp + 1) * tiles / n_splits) * kBc);
+
+  // the query chunks of every row, scaled; dead rows zero
+  float qr[MR][kE];
+  int pos_g[MR];
+#pragma unroll
+  for (int g = 0; g < MR; ++g) {
+    Raw raw{};
+    pos_g[g] = g < rows ? g % Sq : 0;
+    if (g < rows) {
+      const int h = kvh * group + g / Sq;
+      raw = *reinterpret_cast<const Raw*>(q + b * q_sb + h * q_sh +
+                                          pos_g[g] * q_ss + c * kE);
+    }
+    unpack(raw, qr[g]);
+#pragma unroll
+    for (int e = 0; e < kE; ++e) qr[g][e] *= scale;
+  }
+  // the warp's running max and sum of each row, and the thread's chunk of
+  // the row's accumulator over its key lane's keys
+  float m_w[MR], l_w[MR], acc[MR][kE];
+#pragma unroll
+  for (int g = 0; g < MR; ++g) {
+    m_w[g] = kNegInf;
+    l_w[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < kE; ++e) acc[g][e] = 0.f;
+  }
+
+  // the thread's chunks of the step at k0: keys k0 + kl + u kLanes
+  Raw kr[4], vr[4], kn[4], vn[4];
+  auto fetch = [&](Raw (&kx)[4], Raw (&vx)[4], int k0) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int key = k0 + kl + u * kLanes;
+      kx[u] = vx[u] = Raw{};
+      if (key < kv_hi) {
+        kx[u] = *reinterpret_cast<const Raw*>(kb + key * k_ss);
+        vx[u] = *reinterpret_cast<const Raw*>(vb + key * v_ss);
+      }
+    }
+  };
+  fetch(kr, vr, kv_lo);
+  for (int k0 = kv_lo; k0 < kv_hi; k0 += kStep) {
+    fetch(kn, vn, k0 + kStep);  // the next step's rows (none past kv_hi)
+    // every lane reaches the shuffles: rows is the block's
+#pragma unroll
+    for (int g = 0; g < MR; ++g) {
+      if (g >= rows) break;
+      float sc[4];
+      float mx = kNegInf;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float kf[kE];
+        unpack(kr[u], kf);
+        float d = 0.f;
+#pragma unroll
+        for (int e = 0; e < kE; ++e) d = fmaf(qr[g][e], kf[e], d);
+#pragma unroll
+        for (int o = 1; o < kTPK; o <<= 1)
+          d += __shfl_xor_sync(0xffffffffu, d, o);
+        const int key = k0 + kl + u * kLanes;
+        const bool live =
+            key < kv_hi && (!causal || key <= pos_g[g] + offset);
+        sc[u] = live ? d : kNegInf;
+        mx = fmaxf(mx, sc[u]);
+      }
+      // the max and sum over the warp's key lanes
+#pragma unroll
+      for (int o = kTPK; o < 32; o <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_new = fmaxf(m_w[g], mx);
+      // a row with no live key yet keeps m = -1e30: its p and corr are 0
+      const float m_use = m_new == kNegInf ? 0.f : m_new;
+      const float corr = expf(m_w[g] - m_use);
+      m_w[g] = m_new;
+      float p[4], ps = 0.f;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        p[u] = expf(sc[u] - m_use);
+        ps += p[u];
+      }
+#pragma unroll
+      for (int o = kTPK; o < 32; o <<= 1)
+        ps += __shfl_xor_sync(0xffffffffu, ps, o);
+      l_w[g] = l_w[g] * corr + ps;
+#pragma unroll
+      for (int e = 0; e < kE; ++e) acc[g][e] *= corr;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float vf[kE];
+        unpack(vr[u], vf);
+#pragma unroll
+        for (int e = 0; e < kE; ++e) acc[g][e] = fmaf(p[u], vf[e], acc[g][e]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      kr[u] = kn[u];
+      vr[u] = vn[u];
+    }
+  }
+
+  // the warp's partial: its key lanes summed by shuffles, into shared
+  // memory
+#pragma unroll
+  for (int g = 0; g < MR; ++g) {
+#pragma unroll
+    for (int e = 0; e < kE; ++e) {
+#pragma unroll
+      for (int o = kTPK; o < 32; o <<= 1)
+        acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], o);
+    }
+  }
+  if (lane < kTPK) {
+#pragma unroll
+    for (int g = 0; g < MR; ++g) {
+#pragma unroll
+      for (int e = 0; e < kE; e += 4)
+        store_out<4>(red + (warp * MR + g) * D + c * kE + e, acc[g] + e);
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int g = 0; g < MR; ++g) {
+      wm[warp][g] = m_w[g];
+      wl[warp][g] = l_w[g];
+    }
+  }
+  __syncthreads();
+  // item i < rows * kTPK (thread i % 256) merges the warps for row
+  // i / kTPK, chunk i % kTPK: the block's max, sum and accumulator
+  constexpr int kItems = (MR * kTPK + kThreads - 1) / kThreads;  // 1 or 2
+  float o[kItems][kE], l_it[kItems], m_it[kItems];
+#pragma unroll
+  for (int it = 0; it < kItems; ++it) {
+    const int i = tid + it * kThreads;
+    const int g = i / kTPK, cc = i % kTPK;
+#pragma unroll
+    for (int e = 0; e < kE; ++e) o[it][e] = 0.f;
+    l_it[it] = 0.f;
+    m_it[it] = kNegInf;
+    if (i < rows * kTPK) {
+      float mm = kNegInf;
+      for (int w = 0; w < kDecWarps; ++w)
+        if (wl[w][g] > 0.f) mm = fmaxf(mm, wm[w][g]);
+      for (int w = 0; w < kDecWarps; ++w) {
+        // a warp with no live key (l = 0) adds nothing
+        const float ww = wl[w][g] > 0.f ? expf(wm[w][g] - mm) : 0.f;
+        l_it[it] = fmaf(wl[w][g], ww, l_it[it]);
+        const float* x = red + (w * MR + g) * D + cc * kE;
+#pragma unroll
+        for (int e = 0; e < kE; ++e) o[it][e] = fmaf(x[e], ww, o[it][e]);
+      }
+      m_it[it] = mm;
+    }
+  }
+
+  if (n_splits > 1) {
+    // this split's partial, then the last block of the pair merges all
+    float* p0 = ws + static_cast<int64_t>(blockIdx.y) * n_splits *
+                         partial_floats<D>();
+    float* part = p0 + sp * partial_floats<D>();
+#pragma unroll
+    for (int it = 0; it < kItems; ++it) {
+      const int i = tid + it * kThreads;
+      const int g = i / kTPK, cc = i % kTPK;
+      if (i >= rows * kTPK) continue;
+      if (cc == 0) {
+        part[g] = m_it[it];
+        part[kDecodeRows + g] = l_it[it];
+      }
+#pragma unroll
+      for (int e = 0; e < kE; e += 4)
+        store_out<4>(part + 2 * kDecodeRows + g * D + cc * kE + e,
+                     o[it] + e);
+    }
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) {
+      s_last = atomicAdd(counters + blockIdx.y, 1) == n_splits - 1;
+      // every block of the pair has counted: leave the counter zeroed
+      // for the next launch
+      if (s_last) counters[blockIdx.y] = 0;
+    }
+    __syncthreads();
+    if (!s_last) return;
+    __threadfence();
+    // every partial (L2 reads: other blocks wrote them): first the largest
+    // max of the splits that saw a key, then the weighted sums in split
+    // order; no load waits on another, so they are all in flight at once
+#pragma unroll
+    for (int it = 0; it < kItems; ++it) {
+      const int i = tid + it * kThreads;
+      const int g = i / kTPK, cc = i % kTPK;
+      if (i >= rows * kTPK) continue;
+      float mm = kNegInf, ll = 0.f;
+#pragma unroll 4
+      for (int s = 0; s < n_splits; ++s) {
+        const float* ps = p0 + s * partial_floats<D>();
+        if (__ldcg(ps + kDecodeRows + g) > 0.f)
+          mm = fmaxf(mm, __ldcg(ps + g));
+      }
+#pragma unroll
+      for (int e = 0; e < kE; ++e) o[it][e] = 0.f;
+#pragma unroll 4
+      for (int s = 0; s < n_splits; ++s) {
+        const float* ps = p0 + s * partial_floats<D>();
+        const float ls = __ldcg(ps + kDecodeRows + g);
+        // a split with no live key (l = 0) adds nothing
+        const float w = ls > 0.f ? expf(__ldcg(ps + g) - mm) : 0.f;
+        ll = fmaf(ls, w, ll);
+#pragma unroll
+        for (int e = 0; e < kE; e += 4) {
+          const float4 x = __ldcg(reinterpret_cast<const float4*>(
+              ps + 2 * kDecodeRows + g * D + cc * kE + e));
+          o[it][e] = fmaf(x.x, w, o[it][e]);
+          o[it][e + 1] = fmaf(x.y, w, o[it][e + 1]);
+          o[it][e + 2] = fmaf(x.z, w, o[it][e + 2]);
+          o[it][e + 3] = fmaf(x.w, w, o[it][e + 3]);
+        }
+      }
+      l_it[it] = ll;
+    }
+  }
+  // a row with no key has l == 0 and is written as 0
+#pragma unroll
+  for (int it = 0; it < kItems; ++it) {
+    const int i = tid + it * kThreads;
+    const int g = i / kTPK, cc = i % kTPK;
+    if (i >= rows * kTPK) continue;
+    const float inv = l_it[it] == 0.f ? 0.f : 1.f / l_it[it];
+    const int h = kvh * group + g / Sq;
+#pragma unroll
+    for (int e = 0; e < kE; ++e) o[it][e] *= inv;
+    store_chunk(out + ((static_cast<int64_t>(b) * H + h) * Sq + g % Sq) * D +
+                    cc * kE,
+                o[it]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Hopper primitives (B2): shared-memory addresses, mbarriers, TMA, wgmma
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Spin until the barrier's phase `parity` has completed. A wait that never
+// completes (a faulting TMA copy) traps after ~10^10 cycles (seconds), so
+// the launch fails with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  long long start = 0;
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) {
+      start = clock64();
+    } else if (clock64() - start > 10000000000LL) {
+      __trap();
+    }
+  }
+}
+
+// one TMA tile of a 4-D tensor map into shared memory, completing on bar
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// wait until every committed wgmma group has finished
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous wgmma that owns them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units), layout type (1 = SW128, 2 = SW64, 3 = SW32)
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint32_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (static_cast<uint64_t>(layout) << 62);
+}
+
+// d[64 x 64] = a[64 x 16] b[16 x 64] (+ d when scale_d): a in registers,
+// b K-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n64_k(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d[64 x 16] += a[64 x 16] b[16 x 16]: a in registers, b MN-major
+// (transposed) in shared memory
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 32] += a[64 x 16] b[16 x 32]: a in registers, b MN-major
+// (transposed) in shared memory
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 64] += a[64 x 16] b[16 x 64]: a in registers, b MN-major
+// (transposed) in shared memory
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 128] += a[64 x 16] b[16 x 128]: a in registers, b MN-major
+// (transposed) in shared memory
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&d)[D / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (D == 16) {
+    wgmma_rs_n16(d, a, db);
+  } else if constexpr (D == 32) {
+    wgmma_rs_n32(d, a, db);
+  } else if constexpr (D == 64) {
+    wgmma_rs_n64(d, a, db);
+  } else {
+    wgmma_rs_n128(d, a, db);
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Tile geometry of the tensor-core path for head dim D.
+template <int D>
+struct Tc {
+  static constexpr int kRows = 64;                    // rows a block
+  static constexpr int kAtomElems = D < 64 ? D : 64;  // a swizzle-atom row
+  static constexpr int kRowBytes = 2 * kAtomElems;    // 32, 64, 128
+  static constexpr int kAtoms = D / kAtomElems;       // atom columns: 1, 2
+  static constexpr uint32_t kLayout =                 // wgmma layout type
+      kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;
+  static constexpr uint32_t kSbo = 8 * kRowBytes;     // 8 rows of an atom
+  static constexpr uint32_t kAtomCol = kBc * kRowBytes;  // 64 rows of it
+  static constexpr int kTileBytes = kBc * D * 2;  // one K (or V) tile
+  // one K tile and one V tile, then their two barriers; 1024 bytes of
+  // slack to align the swizzled tiles to their swizzle pattern
+  static constexpr size_t kSmem = 1024 + 2 * kTileBytes + 2 * 8;
+};
+
+// K (or V) tile `tile` of (batch b, KV head kvh) into dst, completing on bar
+template <int D>
+__device__ __forceinline__ void issue_tile(const CUtensorMap* map,
+                                           uint8_t* dst, uint64_t* bar,
+                                           int tile, int kvh, int b) {
+  using C = Tc<D>;
+  mbar_expect_tx(bar, C::kTileBytes);
+#pragma unroll
+  for (int a = 0; a < C::kAtoms; ++a)
+    tma_load_4d(dst + a * C::kAtomCol, map, bar, a * C::kAtomElems,
+                tile * kBc, kvh, b);
+}
+
+// s = Q K^T for one 64-key tile (Q from registers, K K-major in shared
+// memory), issued and committed
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&s)[32],
+                                         const uint32_t (&qf)[D / 16][4],
+                                         uint32_t k_addr) {
+  using C = Tc<D>;
+  wgmma_fence();
+#pragma unroll
+  for (int t = 0; t < D / 16; ++t) {
+    const uint32_t col = (t * 16) / C::kAtomElems * C::kAtomCol +
+                         (t * 16) % C::kAtomElems * 2;
+    wgmma_rs_n64_k(s, qf[t],
+                   make_desc(k_addr + col, 16, C::kSbo, C::kLayout), t > 0);
+  }
+  wgmma_commit();
+}
+
+// o += P V for one 64-key tile (P from registers, V MN-major), committed
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
+                                         const uint32_t (&pa)[4][4],
+                                         uint32_t v_addr) {
+  using C = Tc<D>;
+  wgmma_fence();
+#pragma unroll
+  for (int t = 0; t < kBc / 16; ++t)
+    wgmma_pv<D>(o, pa[t], make_desc(v_addr + t * 16 * C::kRowBytes,
+                                    C::kAtomCol, C::kSbo, C::kLayout));
+  wgmma_commit();
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+  }
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The online softmax of one score tile in registers: mask (on tiles that
+// need it), update the running max m (in score units) and this thread's
+// share of the row sums l, write P = 2^(s c - m c) as four k16 A fragments
+// (c = log2(e) / sqrt(D), one FFMA an element) and return the factor the
+// accumulator must be rescaled by. Thread t of warp w holds rows
+// 16 w + t / 4 (+ 8) and keys k0 + 8 j + 2 (t % 4) (+ 1).
+__device__ __forceinline__ void softmax_tile(
+    float (&s)[32], uint32_t (&pa)[4][4], float (&m_r)[2], float (&l_r)[2],
+    float (&corr)[2], int k0, bool masked, int Sk, int causal,
+    const int (&pos_h)[2], int offset, int lane, float scale_log2) {
+  float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int h = (i >> 1) & 1;
+    if (masked) {
+      const int key = k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+      if (key >= Sk || (causal && key > pos_h[h] + offset)) s[i] = kNegInf;
+    }
+    mx[h] = fmaxf(mx[h], s[i]);
+  }
+  float m_c[2];  // the max in log2 units
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    // a row with no live key yet keeps m = -1e30: its p and corr are 0
+    m_c[h] = mx[h] == kNegInf ? 0.f : mx[h] * scale_log2;
+    corr[h] = fast_exp2(fmaf(m_r[h], scale_log2, -m_c[h]));
+    m_r[h] = mx[h];
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    const int h = (i >> 1) & 1;
+    const float p0 = fast_exp2(fmaf(s[i], scale_log2, -m_c[h]));
+    const float p1 = fast_exp2(fmaf(s[i + 1], scale_log2, -m_c[h]));
+    sum[h] += p0 + p1;
+    pa[i >> 3][(i >> 1) & 3] = pack_bf16(p0, p1);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l_r[h] = l_r[h] * corr[h] + sum[h];
+}
+
+// B2: grid (B * Hkv, row tiles of 64 rows); one warpgroup of 128 threads.
+template <int D>
+__global__ void __launch_bounds__(128)
+flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tmap_k,
+                    const __grid_constant__ CUtensorMap tmap_v,
+                    const __nv_bfloat16* __restrict__ q,
+                    __nv_bfloat16* __restrict__ out, int H, int Hkv, int Sq,
+                    int Sk, int causal, float scale_log2, int64_t q_sb,
+                    int64_t q_sh, int64_t q_ss) {
+  using C = Tc<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
+  uint8_t* Ks = base;  // a K tile [kAtoms][64 keys][kRowBytes], swizzled
+  uint8_t* Vs = Ks + C::kTileBytes;  // a V tile, the same
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(Vs + C::kTileBytes);
+  uint64_t* full_v = full_k + 1;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int group = H / Hkv;
+  const int b = blockIdx.x / Hkv;
+  const int kvh = blockIdx.x - b * Hkv;
+  const int rows = group * Sq;
+  const int offset = Sk - Sq;
+  // the block's rows, heaviest tiles first
+  const int g0 = (gridDim.y - 1 - blockIdx.y) * C::kRows;
+  const int g_last = min(g0 + C::kRows, rows) - 1;
+  const bool straddle = g0 / Sq != g_last / Sq;
+  const int max_pos = straddle ? Sq - 1 : g_last % Sq;
+  const int min_pos = straddle ? 0 : g0 % Sq;
+  const int kv_end = causal ? min(Sk, max_pos + offset + 1) : Sk;
+  const int n_tiles = kv_end > 0 ? (kv_end + kBc - 1) / kBc : 0;
+  // keys below this are live for every row of the block: no mask needed
+  const int open_end = causal ? min(Sk, min_pos + offset + 1) : Sk;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) mbar_init(full_k + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0 && n_tiles > 0) {  // the first K and V tiles
+    issue_tile<D>(&tmap_k, Ks, full_k, 0, kvh, b);
+    issue_tile<D>(&tmap_v, Vs, full_v, 0, kvh, b);
+  }
+
+  // this thread's two rows of the accumulator fragments
+  const int r0 = 16 * warp + (lane >> 2);
+  int pos_h[2];
+  bool live_h[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int g = g0 + r0 + 8 * h;
+    live_h[h] = g < rows;
+    pos_h[h] = live_h[h] ? g % Sq : 0;
+  }
+  float o_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o_acc[i] = 0.f;
+  float m_r[2] = {kNegInf, kNegInf};
+  float l_r[2] = {0.f, 0.f};  // this thread's share of the row sums
+  float s[32], corr[2];
+  uint32_t pa[4][4];  // P as four k16 A fragments
+  // Q as D / 16 k16 A fragments in registers: rows r0, r0 + 8, keys
+  // 16 t + 2 (lane % 4) (+ 1) and + 8
+  uint32_t qf[D / 16][4];
+#pragma unroll
+  for (int t = 0; t < D / 16; ++t) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e & 1;
+      const int col = 16 * t + 8 * (e >> 1) + 2 * (lane & 3);
+      qf[t][e] = 0u;
+      if (live_h[h]) {
+        const int g = g0 + r0 + 8 * h;
+        const int head = kvh * group + g / Sq;
+        qf[t][e] = *reinterpret_cast<const uint32_t*>(
+            q + b * q_sb + head * q_sh + pos_h[h] * q_ss + col);
+      }
+    }
+  }
+  const uint32_t k_addr = smem_u32(Ks), v_addr = smem_u32(Vs);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int ph = j & 1;
+    mbar_wait(full_k, ph);
+    issue_qk<D>(s, qf, k_addr);
+    wgmma_wait();
+    fence_regs(s);
+    fence_regs(qf);
+    __syncthreads();  // K tile j read by every warp: the buffer refills
+    if (tid == 0 && j + 1 < n_tiles)
+      issue_tile<D>(&tmap_k, Ks, full_k, j + 1, kvh, b);
+    const int k0 = j * kBc;
+    softmax_tile(s, pa, m_r, l_r, corr, k0, k0 + kBc > open_end, Sk,
+                 causal, pos_h, offset, lane, scale_log2);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o_acc[i] *= corr[(i >> 1) & 1];
+    mbar_wait(full_v, ph);
+    issue_pv<D>(o_acc, pa, v_addr);
+    wgmma_wait();
+    fence_regs(o_acc);
+    fence_regs(pa);
+    __syncthreads();  // V tile j read by every warp: the buffer refills
+    if (tid == 0 && j + 1 < n_tiles)
+      issue_tile<D>(&tmap_v, Vs, full_v, j + 1, kvh, b);
+  }
+
+  // the row sums over the 4 lanes of a row, then one write of the output
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 1);
+    l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 2);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (!live_h[h]) continue;
+    const int g = g0 + r0 + 8 * h;
+    const int head = kvh * group + g / Sq;
+    const float inv = l_r[h] == 0.f ? 0.f : 1.f / l_r[h];
+    __nv_bfloat16* orow =
+        out + ((static_cast<int64_t>(b) * H + head) * Sq + pos_h[h]) * D;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * c + 2 * (lane & 3)) =
+          __floats2bfloat162_rn(o_acc[4 * c + 2 * h] * inv,
+                                o_acc[4 * c + 2 * h + 1] * inv);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, found through the runtime (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) {
+      return nullptr;
+    }
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-D map over the strided [B, Hkv, Sk, D] bf16 view: boxes of
+// (atom columns of D) x 64 keys, swizzled as the wgmma layout expects,
+// keys past Sk zero-filled.
+template <int D>
+bool encode_kv_map(CUtensorMap* map, const void* ptr, int B, int Hkv, int Sk,
+                   const int64_t* st) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(Sk),
+                              static_cast<cuuint64_t>(Hkv),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[2]) * 2,
+                                 static_cast<cuuint64_t>(st[1]) * 2,
+                                 static_cast<cuuint64_t>(st[0]) * 2};
+  const cuuint32_t box[4] = {Tc<D>::kAtomElems, kBc, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swz = Tc<D>::kRowBytes == 128
+                                     ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : Tc<D>::kRowBytes == 64
+                                     ? CU_TENSOR_MAP_SWIZZLE_64B
+                                     : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
+              int H, int Hkv, int Sq, int Sk, int causal, const int64_t* st,
+              cudaStream_t stream) {
+  CUtensorMap tk, tv;
+  if (!encode_kv_map<D>(&tk, k, B, Hkv, Sk, st + 3) ||
+      !encode_kv_map<D>(&tv, v, B, Hkv, Sk, st + 6)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kern = flash_fwd_tc_kernel<D>;
+  constexpr size_t smem = Tc<D>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows = (H / Hkv) * Sq;
-  const dim3 grid((rows + 16 * RPT - 1) / (16 * RPT), B * Hkv);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), H, Hkv, Sq, Sk, causal,
-      1.0f / std::sqrt(static_cast<float>(D)), st[0], st[1], st[2], st[3], st[4],
-      st[5], st[6], st[7], st[8]);
+  const dim3 grid(B * Hkv, (rows + Tc<D>::kRows - 1) / Tc<D>::kRows);
+  const float scale_log2 =
+      1.4426950408889634f / std::sqrt(static_cast<float>(D));
+  kern<<<grid, 128, smem, stream>>>(
+      tk, tv, static_cast<const __nv_bfloat16*>(q),
+      static_cast<__nv_bfloat16*>(out), H, Hkv, Sq, Sk, causal, scale_log2,
+      st[0], st[1], st[2]);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out, int B,
-             int H, int Hkv, int Sq, int Sk, int D, int causal,
-             const int64_t* st, cudaStream_t stream) {
-  // a group's rows fit one 16-row block (decode): that shape; else 64 rows
-  const bool small = (H / Hkv) * Sq <= 16;
-  if (D == 64) {
-    return small ? launch<64, 1, T>(q, k, v, out, B, H, Hkv, Sq, Sk, causal,
-                                    st, stream)
-                 : launch<64, 4, T>(q, k, v, out, B, H, Hkv, Sq, Sk, causal,
-                                    st, stream);
+template <int D>
+int launch_cc(const void* q, const void* k, const void* v, void* out, int B,
+              int H, int Hkv, int Sq, int Sk, int causal, const int64_t* st,
+              cudaStream_t stream) {
+  auto kern = flash_fwd_kernel<D>;
+  constexpr size_t smem = smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rows = (H / Hkv) * Sq;
+  const dim3 grid((rows + 16 * kRpt - 1) / (16 * kRpt), B * Hkv);
+  kern<<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), H, Hkv, Sq, Sk,
+      causal, 1.0f / std::sqrt(static_cast<float>(D)), st[0], st[1], st[2],
+      st[3], st[4], st[5], st[6], st[7], st[8]);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, typename T, int MR>
+int launch_decode(const void* q, const void* k, const void* v, void* out,
+                  int B, int H, int Hkv, int Sq, int Sk, int causal,
+                  const int64_t* st, int n_splits, void* ws, void* counters,
+                  cudaStream_t stream) {
+  auto kern = flash_decode_kernel<D, T, MR>;
+  constexpr size_t smem = dec_smem_bytes<D, MR>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(n_splits, B * Hkv);
+  kern<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), H, Hkv, Sq, Sk, causal,
+      1.0f / std::sqrt(static_cast<float>(D)), st[0], st[1], st[2], st[3],
+      st[4], st[5], st[6], st[7], st[8], (Sk + kBc - 1) / kBc,
+      static_cast<float*>(ws), static_cast<int*>(counters));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, typename T>
+int dispatch_decode(const void* q, const void* k, const void* v, void* out,
+                    int B, int H, int Hkv, int Sq, int Sk, int causal,
+                    const int64_t* st, int n_splits, void* ws,
+                    void* counters, cudaStream_t s) {
+  // rows a block owns, padded: 4 (a decode step of G <= 4 heads) or 16
+  return (H / Hkv) * Sq <= 4
+             ? launch_decode<D, T, 4>(q, k, v, out, B, H, Hkv, Sq, Sk, causal,
+                                      st, n_splits, ws, counters, s)
+             : launch_decode<D, T, kDecodeRows>(q, k, v, out, B, H, Hkv, Sq,
+                                                Sk, causal, st, n_splits, ws,
+                                                counters, s);
+}
+
+template <int D>
+int dispatch_d(const void* q, const void* k, const void* v, void* out, int B,
+               int H, int Hkv, int Sq, int Sk, int dtype, int causal,
+               const int64_t* st, int n_splits, void* ws, void* counters,
+               cudaStream_t s) {
+  if ((H / Hkv) * Sq <= kDecodeRows) {  // B1
+    return dtype == 0
+               ? dispatch_decode<D, float>(q, k, v, out, B, H, Hkv, Sq, Sk,
+                                           causal, st, n_splits, ws, counters,
+                                           s)
+               : dispatch_decode<D, __nv_bfloat16>(q, k, v, out, B, H, Hkv,
+                                                   Sq, Sk, causal, st,
+                                                   n_splits, ws, counters, s);
   }
-  return small ? launch<128, 1, T>(q, k, v, out, B, H, Hkv, Sq, Sk, causal,
-                                   st, stream)
-               : launch<128, 4, T>(q, k, v, out, B, H, Hkv, Sq, Sk, causal,
-                                   st, stream);
+  if (dtype == 1) {  // B2
+    return launch_tc<D>(q, k, v, out, B, H, Hkv, Sq, Sk, causal, st, s);
+  }
+  return launch_cc<D>(q, k, v, out, B, H, Hkv, Sq, Sk, causal, st, s);  // B3
 }
 
 }  // namespace
@@ -353,34 +1414,55 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B,
 // q [B, H, Sq, D], k/v [B, Hkv, Sk, D] with element strides (batch, head,
 // sequence) in strides[0..2], [3..5], [6..8] and a contiguous last axis;
 // out a contiguous [B, H, Sq, D]. dtype 0 = float32, 1 = bfloat16 (all four
-// tensors alike). D is 64 or 128; H a multiple of Hkv. Every pointer is
-// 16-byte aligned (f32) or 8-byte aligned (bf16) and every stride a
-// multiple of 4. Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for arguments the kernel does not take.
+// tensors alike). D is 16, 32, 64 or 128; H a multiple of Hkv. Pointers
+// are 16-byte aligned and strides multiples of 16 bytes (4 f32 or 8 bf16
+// values): every path reads rows in 16-byte chunks, the bf16 prefill's K
+// and V by TMA.
+// Decode ((H / Hkv) * Sq <= 16) splits the keys n_splits ways (1 <= n_splits
+// <= ceil(Sk / 64)); for n_splits > 1, ws holds B * Hkv * n_splits * 16 *
+// (D + 2) floats and counters B * Hkv zeroed int32s, which the launch
+// leaves zeroed (launches sharing them must be stream-ordered). Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for
+// arguments the kernel does not take.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, int64_t B,
                                    int64_t H, int64_t Hkv, int64_t Sq,
                                    int64_t Sk, int64_t D, int dtype,
                                    int causal, const int64_t* strides,
+                                   int64_t n_splits, void* ws, void* counters,
                                    void* stream) {
-  const int64_t align = dtype == 0 ? 16 : 8;
+  const bool decode = Hkv >= 1 && H % Hkv == 0 && (H / Hkv) * Sq <= kDecodeRows;
+  const int64_t stride_mult = dtype == 0 ? 4 : 8;  // 16 bytes
   bool bad = B < 1 || Hkv < 1 || H < Hkv || H % Hkv || Sq < 1 || Sk < 1 ||
-             (D != 64 && D != 128) || (dtype != 0 && dtype != 1) ||
-             B * Hkv > 65535 || (H / Hkv) * Sq > (int64_t{1} << 30) ||
-             Sk > (int64_t{1} << 30);
-  for (int i = 0; i < 9; ++i) bad = bad || strides[i] % 4 != 0;
+             (D != 16 && D != 32 && D != 64 && D != 128) ||
+             (dtype != 0 && dtype != 1) || B * Hkv > 65535 ||
+             (H / Hkv) * Sq > (int64_t{1} << 30) || Sk > (int64_t{1} << 30) ||
+             ((H / Hkv) * Sq + 63) / 64 > 65535;
+  if (decode) {
+    const int64_t tiles = (Sk + kBc - 1) / kBc;
+    bad = bad || n_splits < 1 || n_splits > tiles ||
+          (n_splits > 1 && (ws == nullptr || counters == nullptr));
+  }
+  for (int i = 0; i < 9; ++i) bad = bad || strides[i] % stride_mult != 0;
   for (const void* p : {q, k, v, static_cast<const void*>(out)})
-    bad = bad || reinterpret_cast<uintptr_t>(p) % align != 0;
+    bad = bad || reinterpret_cast<uintptr_t>(p) % 16 != 0;
   if (bad) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  return dtype == 0
-             ? dispatch<float>(q, k, v, out, static_cast<int>(B),
-                               static_cast<int>(H), static_cast<int>(Hkv),
-                               static_cast<int>(Sq), static_cast<int>(Sk),
-                               static_cast<int>(D), causal, strides, s)
-             : dispatch<__nv_bfloat16>(
-                   q, k, v, out, static_cast<int>(B), static_cast<int>(H),
-                   static_cast<int>(Hkv), static_cast<int>(Sq),
-                   static_cast<int>(Sk), static_cast<int>(D), causal, strides,
-                   s);
+  const int b = static_cast<int>(B), h = static_cast<int>(H),
+            hkv = static_cast<int>(Hkv), sq = static_cast<int>(Sq),
+            sk = static_cast<int>(Sk), ns = static_cast<int>(n_splits);
+  switch (D) {
+    case 16:
+      return dispatch_d<16>(q, k, v, out, b, h, hkv, sq, sk, dtype, causal,
+                            strides, ns, ws, counters, s);
+    case 32:
+      return dispatch_d<32>(q, k, v, out, b, h, hkv, sq, sk, dtype, causal,
+                            strides, ns, ws, counters, s);
+    case 64:
+      return dispatch_d<64>(q, k, v, out, b, h, hkv, sq, sk, dtype, causal,
+                            strides, ns, ws, counters, s);
+    default:
+      return dispatch_d<128>(q, k, v, out, b, h, hkv, sq, sk, dtype, causal,
+                             strides, ns, ws, counters, s);
+  }
 }

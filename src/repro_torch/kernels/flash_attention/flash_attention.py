@@ -2,12 +2,24 @@
 
 ``csrc/flash_attention.cu`` is blocked GQA attention with an online
 softmax, the counterpart of the reference's Pallas
-``flash_attention_bhsd``: fp32 math over f32 or bf16 inputs, the causal
-diagonal aligned bottom-right (offset ``Sk - Sq``), rows with no key left
-written as 0. It takes any ``Sq`` and ``Sk`` (masks inside the kernel, no
-padding), ``D`` of 64 or 128, and strided batch, head and sequence axes
-(the KV cache's ``[..., :length, :]`` views need no copy); the last axis
-is contiguous.
+``flash_attention_bhsd``: fp32 softmax and accumulation over f32 or bf16
+inputs, the causal diagonal aligned bottom-right (offset ``Sk - Sq``),
+rows with no key left written as 0. It takes any ``Sq`` and ``Sk`` (masks
+inside the kernel, no padding), ``D`` of 16, 32, 64 or 128, and strided
+batch, head and sequence axes (the KV cache's ``[..., :length, :]`` views
+need no copy); the last axis is contiguous. One launch a call, on one of
+three paths the C entry point picks from shape and type:
+
+* decode (``(H // Hkv) * Sq <= 16``, f32 or bf16): the keys are split
+  :func:`decode_splits` ways across blocks; the wrapper allocates the
+  partials' workspace, and keeps one zeroed int32 counter a (batch, KV
+  head) per device and stream, which each launch leaves zeroed (so
+  launches that share it are stream-ordered);
+* bf16 prefill: ``wgmma`` tensor cores fed by TMA;
+* f32 prefill: CUDA cores.
+
+Every path reads rows in 16-byte chunks, so the tensors must start on a
+16-byte boundary with strides of whole chunks (4 f32 or 8 bf16 values).
 
 :func:`flash_attention_bhsd` launches it for CUDA tensors and raises for
 anything it does not take; the plain version for CPU tensors is
@@ -21,12 +33,46 @@ import ctypes
 
 import torch
 
-__all__ = ["HEAD_DIMS", "check_shapes", "flash_attention_bhsd", "launches"]
+__all__ = ["HEAD_DIMS", "check_shapes", "decode_splits",
+           "flash_attention_bhsd", "launches"]
 
-HEAD_DIMS = (64, 128)  # the kernel's template instances
+HEAD_DIMS = (16, 32, 64, 128)  # the kernel's template instances
+DECODE_ROWS = 16  # (H // Hkv) * Sq up to this takes the split-KV decode path
+KV_TILE = 64      # keys per tile, every path
+SMS = 132         # streaming multiprocessors of an H100
+SPLIT_TILES = 4   # fewest tiles a split is worth its share of the merge
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0  # CUDA launches of the kernel in this process
+_fn = None  # the C entry point, argument types set
+# decode's split counters, by (device index, stream)
+_counters: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _entry():
+    global _fn
+    if _fn is None:
+        from repro_torch.kernels._build import library
+
+        fn = library("flash_attention").flash_attention_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 6
+                       + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                          ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _split_counters(device: torch.device, stream: int,
+                    n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 counters for launches on ``stream``."""
+    key = (device.index, stream)
+    c = _counters.get(key)
+    if c is None or c.numel() < n:
+        c = _counters[key] = torch.zeros(max(n, 256), dtype=torch.int32,
+                                         device=device)
+    return c
 
 
 def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -49,13 +95,24 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"{v.dtype}")
 
 
+def decode_splits(batch: int, kv_heads: int, sk: int) -> int:
+    """Chunks of whole 64-key tiles the decode path cuts ``[0, Sk)`` into
+    (the kernel deals the tiles out as evenly as they go): enough to give
+    each of the H100's 132 SMs a block where the pairs are few, but no
+    more than one wave of ``batch * kv_heads * splits`` blocks (one
+    resident an SM: the decode kernel holds ~150 registers a thread), and
+    at least 4 tiles a chunk, below which a split's share of the merge
+    costs more than its keys (``tools/flash_decode_splits.py`` times the
+    alternatives)."""
+    tiles = -(-sk // KV_TILE)
+    return max(1, min(-(-tiles // SPLIT_TILES), SMS // (batch * kv_heads)))
+
+
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True) -> torch.Tensor:
     """Launch the CUDA kernel on q [B,H,Sq,D], k/v [B,Hkv,Sk,D] (all on one
     CUDA device); returns a new contiguous [B,H,Sq,D] in q's dtype. Does
     not synchronise."""
-    from repro_torch.kernels._build import library
-
     check_shapes(q, k, v)
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must lie on one CUDA device")
@@ -67,28 +124,37 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"head dim {D} not supported (one of {HEAD_DIMS})")
     if B * Hkv > 65535:
         raise ValueError(f"batch x kv heads = {B * Hkv} exceeds 65535")
-    align = 16 if q.dtype == torch.float32 else 8
+    decode = (H // Hkv) * Sq <= DECODE_ROWS
+    # every path reads rows in 16-byte chunks (the bf16 prefill's K and V
+    # by TMA): 16-byte aligned tensors with strides of whole chunks
+    mult = 16 // q.element_size()
     strides = []
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"{name}'s last axis must be contiguous")
         st = t.stride()[:3]
-        if any(s % 4 for s in st) or t.data_ptr() % align:
-            raise ValueError(f"{name} needs strides that are multiples of 4 "
-                             f"and a {align}-byte aligned start")
+        if any(s % mult for s in st) or t.data_ptr() % 16:
+            raise ValueError(
+                f"{name} needs a 16-byte aligned start and strides that are "
+                f"multiples of {mult} elements (16 bytes; the bf16 prefill "
+                f"loads K and V by TMA)")
         strides += st
+    fn = _entry()
     out = torch.empty((B, H, Sq, D), dtype=q.dtype, device=q.device)
-    fn = library("flash_attention").flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 6
-                   + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                      ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    n_splits = decode_splits(B, Hkv, Sk) if decode else 1
     st_arr = (ctypes.c_int64 * 9)(*strides)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
+        ws = counters = None
+        if n_splits > 1:
+            ws = torch.empty(B * Hkv * n_splits * DECODE_ROWS * (D + 2),
+                             dtype=torch.float32, device=q.device)
+            counters = _split_counters(q.device, stream, B * Hkv)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  B, H, Hkv, Sq, Sk, D, _DTYPES[q.dtype], int(bool(causal)),
-                 ctypes.cast(st_arr, ctypes.c_void_p), stream)
+                 ctypes.cast(st_arr, ctypes.c_void_p), n_splits,
+                 None if ws is None else ws.data_ptr(),
+                 None if counters is None else counters.data_ptr(), stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")

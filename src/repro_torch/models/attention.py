@@ -147,7 +147,11 @@ def init_kv_cache(n_layers: int, batch: int, n_kv_heads: int, max_seq: int,
 
 def cache_update(cache: dict, layer: int, k_new: torch.Tensor,
                  v_new: torch.Tensor) -> dict:
-    """Write [B, Hkv, 1, D] at the current length of ``layer``, in place."""
+    """Write [B, Hkv, 1, D] at the current length of ``layer``, in place.
+
+    Raises ``ValueError`` on a full cache: :func:`decode_step` never calls
+    it there (it skips the write, as the reference does), so the raise is
+    for other callers only."""
     idx = cache["length"]
     if idx >= cache["k"].shape[3]:
         raise ValueError(f"KV cache is full ({idx} positions)")

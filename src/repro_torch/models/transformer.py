@@ -276,10 +276,17 @@ def decode_step(params: Transformer, cache: dict, token: torch.Tensor,
     reference returns a new cache; the port saves the copy), then each
     layer attends its query over the first ``length + 1`` cached
     positions through the flash kernel. ``length`` advances by one.
+
+    Past a full cache (``length >= max_seq``) the step does what the
+    reference's one-hot insert does: it writes nothing, attends over all
+    ``max_seq`` cached positions, keeps RoPE at the true position
+    ``length`` and still advances ``length``.
     """
     _dense_only(cfg.is_moe)
     B = token.shape[0]
     idx = cache["length"]
+    full = idx >= cache["k"].shape[3]
+    kv_len = cache["k"].shape[3] if full else idx + 1
     x = params.embed[token][:, None, :]                    # [B, 1, d]
     cos, sin = rope_cos_sin(
         torch.full((1,), idx, dtype=torch.int64, device=params.device),
@@ -294,9 +301,10 @@ def decode_step(params: Transformer, cache: dict, token: torch.Tensor,
                                  cfg.d_head).transpose(1, 2)
         q = rotate(q, cos, sin)
         k = rotate(k, cos, sin)
-        cache_update(cache, layer, k.to(cdt), v.to(cdt))
-        o = flash_attention(q.to(cdt), cache["k"][layer, :, :, :idx + 1],
-                            cache["v"][layer, :, :, :idx + 1], causal=True)
+        if not full:
+            cache_update(cache, layer, k.to(cdt), v.to(cdt))
+        o = flash_attention(q.to(cdt), cache["k"][layer, :, :, :kv_len],
+                            cache["v"][layer, :, :, :kv_len], causal=True)
         o = o.to(x.dtype).transpose(1, 2).reshape(
             B, 1, cfg.n_heads * cfg.d_head)
         x = x + dense(lp.wo, o)

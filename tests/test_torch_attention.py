@@ -34,6 +34,9 @@ SHAPES = [
     (1, 4, 1, 128, 128, 128),   # MQA
     (1, 8, 8, 128, 512, 64),    # decode: cache longer than queries
     (1, 4, 4, 384, 384, 64),    # non-power-of-two block count
+    # the reduced LM configs' head dims (one Pallas block each)
+    (1, 4, 2, 64, 64, 16),
+    (2, 4, 1, 32, 64, 32),      # MQA, cache longer than queries
 ]
 
 
@@ -76,18 +79,20 @@ def test_flash_matches_pallas_shape_sweep(ref, causal):
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
 def test_flash_matches_pallas_dtypes(ref, dtype, tol):
-    q, k, v = _qkv((1, 4, 2, 128, 128, 64), 7)
     jdt = getattr(ref.jnp, dtype)
-    want = ref.flash(*(ref.jnp.asarray(a).astype(jdt) for a in (q, k, v)),
-                     causal=True)
-    assert want.dtype == jdt
-    # the port sees the same bf16-rounded inputs
-    rounded = [np.array(ref.jnp.asarray(a).astype(jdt).astype(
-        ref.jnp.float32)) for a in (q, k, v)]
-    got = _port(*rounded, dtype=getattr(torch, dtype))
-    np.testing.assert_allclose(got, np.asarray(want.astype(ref.jnp.float32)),
-                               rtol=tol, atol=tol if dtype == "bfloat16"
-                               else 1e-5)
+    for shape in ((1, 4, 2, 128, 128, 64), (1, 4, 2, 64, 64, 32),
+                  (1, 4, 2, 64, 64, 16)):
+        q, k, v = _qkv(shape, 7)
+        want = ref.flash(*(ref.jnp.asarray(a).astype(jdt) for a in (q, k, v)),
+                         causal=True)
+        assert want.dtype == jdt
+        # the port sees the same bf16-rounded inputs
+        rounded = [np.array(ref.jnp.asarray(a).astype(jdt).astype(
+            ref.jnp.float32)) for a in (q, k, v)]
+        got = _port(*rounded, dtype=getattr(torch, dtype))
+        np.testing.assert_allclose(
+            got, np.asarray(want.astype(ref.jnp.float32)), rtol=tol,
+            atol=tol if dtype == "bfloat16" else 1e-5, err_msg=str(shape))
 
 
 def test_fully_masked_rows_are_zero_as_in_pallas(ref):
@@ -172,12 +177,13 @@ def test_rope_rmsnorm_swiglu_match_reference(ref):
 
 
 def test_wrapper_checks_and_cpu_takes_the_plain_version():
-    q, k, v = (torch.from_numpy(a) for a in _qkv((1, 4, 2, 8, 8, 32), 3))
+    q, k, v = (torch.from_numpy(a) for a in _qkv((1, 4, 2, 8, 8, 48), 3))
     before = KERNEL.launches
-    # any head dim runs on the CPU (the kernel takes 64 and 128)
+    # any head dim runs on the CPU (the kernel takes 16, 32, 64 and 128)
     torch.testing.assert_close(flash_attention(q, k, v),
                                attention_plain(q, k, v))
     assert KERNEL.launches == before  # no launch for a CPU tensor
+    assert KERNEL.HEAD_DIMS == (16, 32, 64, 128)
     with pytest.raises(ValueError, match="multiple of kv heads"):
         flash_attention(q[:, :3], k, v)
     with pytest.raises(ValueError, match="dtypes differ"):
@@ -193,29 +199,42 @@ def _need_gpu():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
 
 
+def _check_cuda(shape, causal, dtype, seed, kv=None):
+    """One launch on the card, held against the plain version (f32 at
+    rtol 1e-4 / atol 1e-5, bf16 at 2e-2); returns the kernel's output."""
+    q = torch.from_numpy(_qkv(shape, seed)[0]).to(dtype).cuda()
+    if kv is None:
+        kv = [torch.from_numpy(a).to(dtype).cuda()
+              for a in _qkv(shape, seed)[1:]]
+    before = KERNEL.launches
+    got = flash_attention(q, *kv, causal=causal)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    want = attention_plain(q, *kv, causal=causal)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol if dtype == torch.bfloat16 else 1e-5,
+                               msg=lambda m: f"{shape} {dtype}: {m}")
+    return got, want
+
+
 @pytest.mark.cuda
 def test_cuda_flash_matches_plain():
-    """The CUDA kernel against its plain version on the card: GQA, MQA,
-    causal and not, ragged Sq/Sk, decode over strided cache views, fully
-    masked rows, f32 and bf16, D 64 and 128; one launch a call."""
+    """The CUDA kernel against its plain version on the card, every head
+    dim in both dtypes: GQA, MQA, causal and not, ragged Sq/Sk, fully
+    masked rows, decode over strided cache views; one launch a call."""
     _need_gpu()
-    for i, (shape, causal, dtype, tol) in enumerate([
-            ((1, 4, 2, 128, 128, 64), True, torch.float32, 1e-4),
-            ((2, 12, 4, 37, 37, 64), True, torch.float32, 1e-4),
-            ((2, 12, 4, 37, 37, 64), False, torch.float32, 1e-4),
-            ((3, 12, 4, 1, 300, 64), True, torch.float32, 1e-4),
-            ((1, 4, 1, 256, 128, 128), True, torch.float32, 1e-4),
-            ((1, 16, 8, 200, 200, 128), True, torch.bfloat16, 2e-2)]):
-        q, k, v = (torch.from_numpy(a).to(dtype).cuda()
-                   for a in _qkv(shape, 60 + i))
-        before = KERNEL.launches
-        got = flash_attention(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        assert KERNEL.launches == before + 1
-        want = attention_plain(q, k, v, causal=causal)
-        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
-                                   atol=tol if dtype == torch.bfloat16
-                                   else 1e-5)
+    for d in (16, 32, 64, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            for i, (shape, causal) in enumerate([
+                    ((1, 4, 2, 128, 128, d), True),
+                    ((2, 12, 4, 37, 37, d), True),
+                    ((2, 12, 4, 37, 37, d), False),
+                    ((3, 12, 4, 1, 300, d), True),
+                    ((1, 4, 1, 256, 128, d), True)]):
+                got, _ = _check_cuda(shape, causal, dtype, 60 + i)
+                if causal and shape[3] > shape[4]:  # rows with no key: 0
+                    assert not got[:, :, :shape[3] - shape[4]].any()
     # decode over a cache view: strided head axis, Sk = length + 1
     cache = torch.randn((2, 4, 64, 64), device="cuda")
     q = torch.randn((2, 12, 1, 64), device="cuda")
@@ -225,4 +244,58 @@ def test_cuda_flash_matches_plain():
                                    attention_plain(q, kv, kv), rtol=1e-4,
                                    atol=1e-5)
     with pytest.raises(ValueError, match="head dim"):
-        flash_attention(*(torch.zeros((1, 2, 4, 32), device="cuda"),) * 3)
+        flash_attention(*(torch.zeros((1, 2, 4, 48), device="cuda"),) * 3)
+
+
+@pytest.mark.cuda
+def test_cuda_split_kv_decode():
+    """The split-KV decode path ((H / Hkv) * Sq <= 16): one key, a part
+    tile, 1,000 keys (4 splits), Sk not a multiple of 64, one pair with
+    fewer tiles than SMs, 16 rows, causal rows (Sq = 2), a full cache at
+    max_seq (cache views), f32 and bf16; the same decode twice gives the
+    same bits."""
+    _need_gpu()
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, shape in enumerate([(8, 12, 4, 1, 1, 64),
+                                   (8, 12, 4, 1, 63, 64),
+                                   (8, 12, 4, 1, 1000, 64),
+                                   (2, 16, 8, 1, 777, 128),
+                                   (1, 1, 1, 1, 100, 32),  # 1 pair, 2 tiles
+                                   (2, 4, 2, 3, 200, 16),  # G * Sq = 6
+                                   (2, 16, 1, 1, 300, 128),  # 16 rows
+                                   (1, 8, 1, 2, 500, 128)]):  # causal, Sq 2
+            _check_cuda(shape, True, dtype, 80 + i)
+        # a full cache: every one of max_seq positions, through views
+        cache = torch.randn((2, 8, 4, 512, 64), device="cuda").to(dtype)
+        kv = [cache[0], cache[1]]
+        _check_cuda((8, 12, 4, 1, 512, 64), True, dtype, 90, kv=kv)
+        q = torch.randn((8, 16, 1, 128), device="cuda").to(dtype)
+        big = torch.randn((2, 8, 8, 2048, 128), device="cuda").to(dtype)
+        runs = [flash_attention(q, big[0, :, :, :2000], big[1, :, :, :2000])
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_tensor_core_prefill():
+    """The wgmma/TMA path (bf16, (H / Hkv) * Sq > 16): ragged Sq = 37 and
+    200, rows with no key (Sk < Sq), GQA and MQA, every head dim; a
+    misaligned stride raises instead of reaching TMA."""
+    _need_gpu()
+    for d in (16, 32, 64, 128):
+        for i, (shape, causal) in enumerate([
+                ((2, 12, 4, 37, 37, d), True),
+                ((1, 16, 8, 200, 200, d), True),
+                ((1, 8, 1, 200, 200, d), True),       # MQA
+                ((1, 4, 2, 200, 150, d), False),
+                ((1, 4, 2, 256, 100, d), True)]):     # 156 rows with no key
+            got, _ = _check_cuda(shape, causal, torch.bfloat16, 100 + i)
+            if causal and shape[3] > shape[4]:
+                assert not got[:, :, :shape[3] - shape[4]].any()
+                assert got[:, :, shape[3] - shape[4]:].abs().amax(-1).min() > 0
+    q = torch.zeros((1, 4, 64, 64), device="cuda", dtype=torch.bfloat16)
+    kv = torch.zeros((1, 2, 64, 68), device="cuda",
+                     dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="TMA"):
+        flash_attention(q, kv, kv)

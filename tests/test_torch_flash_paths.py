@@ -1,0 +1,70 @@
+"""The flash-attention kernel's host-side choices, and its plain version at
+every head dim the kernel takes, on the CPU.
+
+The CUDA kernel picks one of three paths per call (split-KV decode when
+``(H // Hkv) * Sq <= 16``, else bf16 prefill on tensor cores or f32
+prefill on CUDA cores) and, for decode, a split count from the shape
+alone (``decode_splits``). The split count sizes the workspace the
+wrapper allocates, so it is pinned here case by case. The plain version
+(``attention_plain``, what a CPU tensor takes) is held against the
+reference's ``attention_ref`` at D = 16, 32, 64 and 128 on ragged and
+decode-like shapes (rtol 1e-4 / atol 1e-5, f32; rows with no key
+excluded, where ``attention_ref`` gives NaN and the plain version 0).
+The kernel itself is held against the plain version by the ``cuda``
+tests of ``tests/test_torch_attention.py``.
+"""
+import importlib
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attention import attention_plain
+
+KERNEL = importlib.import_module(
+    "repro_torch.kernels.flash_attention.flash_attention")
+
+
+@pytest.mark.parametrize("b,hkv,sk,want", [
+    (8, 4, 1, 1),        # one key
+    (8, 4, 256, 1),      # fastwarc_lm's profiled decode: 4 tiles, unsplit
+    (8, 4, 257, 2),      # a fifth tile: 2 splits
+    (8, 4, 1000, 4),     # 32 pairs: 4 splits fill 128 of 132 SMs
+    (8, 8, 2000, 2),     # 64 pairs: one wave holds 2 splits
+    (1, 1, 100, 1),      # fewer than 4 tiles a split: unsplit
+    (1, 1, 9999, 40),    # 157 tiles, 4 a split
+    (1, 8, 5000, 16),    # one wave: 132 // 8
+    (300, 1, 500, 1),    # more pairs than SMs
+])
+def test_decode_splits(b, hkv, sk, want):
+    """At most one wave of blocks (one an SM of the H100's 132), at least
+    4 of the 64-key tiles a split, at least one split."""
+    n = KERNEL.decode_splits(b, hkv, sk)
+    assert n == want
+    assert n == 1 or b * hkv * n <= 132
+    assert n <= -(-sk // 64)
+
+
+@pytest.mark.parametrize("d", [16, 32, 128])
+def test_plain_attention_head_dims_match_reference(d):
+    """GQA prefill with ragged Sq/Sk, rows with no key (causal, Sq > Sk)
+    and decode (Sq = 1) at head dim d: the plain version against the
+    reference's exact attention."""
+    from repro.kernels.flash_attention.ref import attention_ref
+
+    rng = np.random.default_rng(d)
+    for b, h, hkv, sq, sk in ((2, 6, 2, 37, 37), (1, 4, 2, 40, 25),
+                              (3, 12, 4, 1, 130)):
+        q = rng.standard_normal((b, h, sq, d)).astype(np.float32)
+        k = rng.standard_normal((b, hkv, sk, d)).astype(np.float32)
+        v = rng.standard_normal((b, hkv, sk, d)).astype(np.float32)
+        for causal in (True, False):
+            got = attention_plain(*(torch.from_numpy(a) for a in (q, k, v)),
+                                  causal=causal).numpy()
+            want = np.asarray(attention_ref(q, k, v, causal=causal))
+            keyed = slice(max(0, sq - sk) if causal else 0, None)
+            np.testing.assert_allclose(
+                got[:, :, keyed], want[:, :, keyed], rtol=1e-4, atol=1e-5,
+                err_msg=f"{(b, h, hkv, sq, sk, d)} causal={causal}")
+            if causal and sq > sk:
+                assert not got[:, :, :sq - sk].any()

@@ -110,6 +110,41 @@ def test_engine_greedy_matches_reference(ref, port_params):
     assert set(stats) == set(want_stats)
 
 
+def test_engine_past_a_full_cache_matches_reference(ref, port_params):
+    """BOS + prompt longer than ``max_seq``: the reference's decode step
+    writes nothing past the buffer and attends over all of it; the port's
+    does the same (no "cache is full" raise), and neither engine has a
+    step left to generate."""
+    reqs = [(b"a" * 16, 4), (b"hi", 4)]
+    out = []
+    for engine_cls, request_cls, params, cfg, kw in (
+            (ref.engine.ServeEngine, ref.engine.Request, ref.params, ref.cfg,
+             {}),
+            (ServeEngine, Request, port_params, CFG, {"device": "cpu"})):
+        engine = engine_cls(cfg, params, batch_size=2, max_seq=16,
+                            temperature=0.0, **kw)
+        done = engine.serve([request_cls(p, max_new_tokens=n)
+                             for p, n in reqs])
+        out.append([r.out_tokens for r in done])
+    assert out[0] == out[1] == [[], []]
+    # one step past the buffer: logits within tolerance, length advanced
+    rng = np.random.default_rng(3)
+    cache_r = ref.tf.init_cache(ref.cfg, 2, 4)
+    cache_p = port_tf.init_cache(CFG, 2, 4, device="cpu")
+    for step in range(6):
+        tok = rng.integers(0, CFG.vocab, 2)
+        want, cache_r = ref.step(ref.params, cache_r, tok.astype(np.int32))
+        got, cache_p = port_tf.decode_step(port_params, cache_p,
+                                           torch.from_numpy(tok), CFG)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                                   atol=1e-4, err_msg=f"step {step}")
+    assert cache_p["length"] == int(cache_r["length"]) == 6
+    for key in ("k", "v"):
+        np.testing.assert_allclose(cache_p[key].numpy(),
+                                   np.asarray(cache_r[key]), rtol=1e-4,
+                                   atol=1e-5)
+
+
 def test_engine_first_token_is_forward_argmax(port_params):
     """The reference's prefill criterion (tests/test_serve.py): the first
     generated token == argmax of forward's last-position logits."""
@@ -251,13 +286,15 @@ def _need_gpu():
 def test_cuda_forward_and_engine_match_cpu():
     """The card's forward (flash kernel) against the CPU's (plain version)
     with the same seeded weights, and greedy engine tokens equal; the
-    kernel launches in both."""
+    kernel launches in both. The reduced config as it is (d_head 32)."""
     _need_gpu()
     import importlib
 
     kernel = importlib.import_module(
         "repro_torch.kernels.flash_attention.flash_attention")
-    cfg = CFG.scaled(d_model=256, n_heads=4, n_kv_heads=2, d_head=64)
+    cfg = CFG
+    assert cfg.d_head == 32
+    torch.backends.cuda.matmul.allow_tf32 = False
     gpu = port_tf.init_params(cfg, generator=torch.Generator().manual_seed(1))
     cpu = port_tf.init_params(cfg, generator=torch.Generator().manual_seed(1),
                               device="cpu")
