@@ -20,7 +20,9 @@ plain PyTorch version:
    ``pattern_scan_rowgroup``, ``digest_signature_rowgroup``'s sub-2048
    widths, ``pattern_scan_batch_multi`` and
    ``pattern_scan_rowgroup_multi`` with mixed pattern lengths and inert
-   pad rows, ``adler32_partials_batch`` with all-0xFF and empty rows);
+   pad rows, ``adler32_partials_batch`` with all-0xFF and empty rows;
+   ``digest_sig``'s general body at n = 24 and 129 and block 4096;
+   ``pattern_scan_rowgroup`` where its early exit never fires);
 5. main path: ``build_index(device="cuda")``; every digest against
    ``zlib.adler32``, a seeded sample of signatures against
    ``signature_of``, and a ``save``/``load`` round trip;
@@ -59,6 +61,16 @@ plain PyTorch version:
     32) on the card, its forward equal to the CPU's and its engine's
     greedy tokens equal to the CPU engine's.
 
+The ``kernels`` line holds each kernel against its plain version on the
+inputs it is then timed on, at its main path's dominant shape; besides,
+``digest_sig`` as one grouped launch over phase 5's first flush (all its
+width buckets), ``pattern_scan_rowgroup`` on the store's shape where the
+early exit never fires (both beside the template it shared with
+``pattern_scan_batch`` on the same bytes), and the floor under small
+launches: an empty kernel (``kernels/empty/csrc/empty.cu``) and
+``torch.Tensor.copy_`` of #2's and #3's byte counts, under the same
+timing; the read-flushed times are extra numbers.
+
 Phase 4 also holds ``flash_attention_bhsd`` against its plain version on
 each of its three paths: f32 prefill (CUDA cores) at the prefill shape,
 a non-causal shape, ``Sq = Sk = 37`` and head dims 32 and 16; the
@@ -84,6 +96,8 @@ from __future__ import annotations
 
 import argparse
 import cProfile
+import ctypes
+import functools
 import importlib
 import json
 import pstats
@@ -119,6 +133,7 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.adler32 import adler32_batch  # noqa: E402
 from repro_torch.kernels.digest_sig import digest_sig as ds  # noqa: E402
 from repro_torch.kernels.digest_sig import digest_signature_rowgroup  # noqa: E402
+from repro_torch.kernels.digest_sig.ops import pack_batch  # noqa: E402
 from repro_torch.kernels.pattern_scan import pattern_scan as ps  # noqa: E402
 from repro_torch.kernels.pattern_scan import (  # noqa: E402
     find_pattern_mask_rowgroup, find_pattern_masks_multi,
@@ -254,6 +269,66 @@ def time_ms(fn, reps: int = 25) -> float:
     return float(np.median(times))
 
 
+def time_ms_read_flush(fn, reps: int = 25) -> float:
+    """``time_ms`` with the L2 flushed by reading the flush buffer (a
+    reduction over it) instead of zeroing it: the cache then holds clean
+    lines, so no write-back of dirty ones lands inside the timed call.
+    An extra number beside ``time_ms``'s, never in its place."""
+    time_ms(fn, 1)  # allocates the flush buffer, warms fn up
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        _FLUSH.max()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+@functools.cache
+def _empty_entry():
+    fn = _build.library("empty").empty_launch
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def empty_launch() -> None:
+    """One launch of ``kernels/empty/csrc/empty.cu``'s empty kernel."""
+    err = _empty_entry()(torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"empty kernel launch failed: CUDA error {err}")
+
+
+def floor_numbers(nbytes: dict) -> dict:
+    """The floor under small launches: an empty kernel's time under
+    ``time_ms`` (and, as an extra number, under the read flush), and
+    ``torch.Tensor.copy_`` moving each named kernel's byte count (half
+    read, half written) as a streaming yardstick, with its byte bound."""
+    out = {"empty_kernel_ms": time_ms(empty_launch),
+           "empty_kernel_ms_read_flush": time_ms_read_flush(empty_launch),
+           "copy": {}}
+    for name, nb in nbytes.items():
+        src = torch.empty(nb // 2, dtype=torch.uint8, device="cuda")
+        dst = torch.empty_like(src)
+        moved = 2 * src.numel()
+        out["copy"][name] = {
+            "bytes_moved": moved, "ms": time_ms(lambda: dst.copy_(src)),
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
+        del src, dst
+    log(f"[kernels] floor: empty kernel {out['empty_kernel_ms']:.4g} ms "
+        f"(L2 flushed by zeroing), {out['empty_kernel_ms_read_flush']:.4g} "
+        f"ms (flushed by reading); copy_ of "
+        + "; ".join(f"{k}'s {c['bytes_moved']} bytes {c['ms']:.4g} ms "
+                    f"(bound {c['bound_ms']:.4g})"
+                    for k, c in out["copy"].items()))
+    return out
+
+
 def bound(nbytes: int, ops: int) -> tuple[float, str]:
     """Least time for the work: bytes over the memory rate or operations
     over the scalar rate, whichever is larger."""
@@ -349,6 +424,19 @@ def rowgroup_inputs(rng, rows: int, width: int, live: int
     return m, lengths.astype(np.int64), pat
 
 
+def worst_case_inputs(rows: int, width: int
+                      ) -> list[tuple[np.ndarray, np.ndarray]]:
+    """Row-groups on which the row-group scan's early exit never fires:
+    every byte ``a`` with the pattern ``a`` x 16, and text made of phase
+    8's 16-byte pattern repeated (each chunk holds a whole match)."""
+    pat = np.frombuffer(b"nginx/1.25\r\nDate", np.uint8)
+    same = np.zeros((rows, width + PAD), np.uint8)
+    same[:, :width] = ord("a")
+    rep = np.zeros((rows, width + PAD), np.uint8)
+    rep[:, :width] = np.resize(pat, width)
+    return [(same, np.full(16, ord("a"), np.uint8)), (rep, pat.copy())]
+
+
 def rowgroup_checks(results: dict) -> None:
     """pattern_scan_rowgroup and the row-group wrappers on the card
     against their plain versions (the CPU path runs the plain version)."""
@@ -408,6 +496,16 @@ def rowgroup_checks(results: dict) -> None:
                     raise RuntimeError(
                         f"digest_signature_rowgroup B={rows} W={width}: "
                         f"card != plain")
+    # the early exit never fires: every byte of the pattern matches
+    for m, p in worst_case_inputs(675, 12288):
+        x = torch.from_numpy(m).cuda()
+        for plen in (1, 7, 16):
+            got = ps.pattern_scan_rowgroup(x, p, plen)
+            want = ps.pattern_scan_rowgroup_plain(x, p, plen)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want) or not int(want.sum()):
+                raise RuntimeError(f"pattern_scan_rowgroup worst case "
+                                   f"{bytes(p)!r} P={plen}: card != plain")
     results["max_abs_err"]["pattern_scan_rowgroup"] = err
     log(f"[kernels] pattern_scan_rowgroup and the row-group wrappers "
         f"bit-identical to their plain versions (max |kernel - plain| = "
@@ -458,9 +556,23 @@ def kernel_checks(results: dict) -> None:
             b, _ = bound(*digest_cost(rows, width, kblock, 4))
             log(f"[kernels] digest_sig B={rows} W={width}: {ms:.4g} "
                 f"ms/launch, bound {b:.4g} ms, plain {plain:.4g} ms")
+    # the general body: n-grams past 17 bytes, a sub-block past 2048
+    for rows, width, n, kblock in ((6, 8192, 24, 2048), (6, 8192, 129, 2048),
+                                   (3, 8192, 4, 4096)):
+        x = digest_inputs(rng, rows, width)
+        got = ds.digest_sig_partials_batch(x, n=n, block=kblock)
+        want = ds.digest_sig_plain(x, n=n, block=kblock)
+        torch.cuda.synchronize()
+        d = max(int((g.long() - w.long()).abs().max())
+                for g, w in zip(got, want))
+        err["digest_sig"] = max(err["digest_sig"], d)
+        if d:
+            raise RuntimeError(f"digest_sig B={rows} W={width} n={n} "
+                               f"block={kblock}: max |kernel - plain| = {d}")
     results["max_abs_err"] = err
     log(f"[kernels] every kernel output bit-identical to its plain version "
-        f"(max |kernel - plain| = {err})")
+        f"(max |kernel - plain| = {err}); digest_sig's general body at "
+        f"n = 24, 129 and block 4096")
 
 
 MULTI_PATTERNS = [b"W", b"WA", b"ARC", b"WARC", b"WARC/", b"WARC/1", b"WARC/1.",
@@ -735,7 +847,7 @@ def main_build(paths: list[str], workdir: Path, results: dict) -> CdxIndex:
     stage = {k: c.get(f"index.stage.{k}_us", 0) / 1e6
              for k in ("parse", "digest_sig", "assemble")}
     split = {k: c.get(f"stage.digest_signature_batch.{k}_us", 0) / 1e6
-             for k in ("h2d", "kernel", "d2h", "fold")}
+             for k in ("pack", "h2d", "kernel", "d2h", "fold")}
     results["build"] = {"records": len(index), "seconds": dt,
                         "records_per_s": len(index) / dt, "stages_s": stage,
                         "digest_sig_split_s": split}
@@ -745,6 +857,9 @@ def main_build(paths: list[str], workdir: Path, results: dict) -> CdxIndex:
         + "; digest_sig split (s): "
         + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
     results["digest_sig_shape"] = dominant_shape("digest_signature_batch")
+    log(f"[build] {ds.launches} digest_sig launches for "
+        f"{int(c['kernel.digest_signature_batch.dispatches'])} width buckets")
+    results["flush_group"] = first_flush(paths[0])
 
     # every digest against zlib, a seeded sample of signatures on the host
     n_sample = min(SIG_SAMPLE, len(index))
@@ -776,6 +891,22 @@ def main_build(paths: list[str], workdir: Path, results: dict) -> CdxIndex:
         f"signatures == signature_of; save/load round trip equal "
         f"({nbytes} bytes)")
     return index
+
+
+def first_flush(path: str) -> tuple[torch.Tensor, np.ndarray, int]:
+    """The build's first flush of ``path`` (its first records, up to the
+    build's flush limits) packed as the batch wrapper packs it: the
+    pinned staging buffer, its descriptor table and output words."""
+    from repro_torch.index.cdx import _FUSED_BATCH, _FUSED_BATCH_BYTES
+
+    bufs, nbytes = [], 0
+    for rec in FastWARCIterator(path, parse_http=False):
+        bufs.append(np.frombuffer(rec.content, np.uint8))
+        nbytes += bufs[-1].size
+        if len(bufs) >= _FUSED_BATCH or nbytes >= _FUSED_BATCH_BYTES:
+            break
+    staging, table, words, _ = pack_batch(bufs, pin=True)
+    return staging, table, words
 
 
 # -- phase 6 ---------------------------------------------------------------
@@ -1073,7 +1204,7 @@ def verify_phase(index: CdxIndex, workdir: Path, results: dict) -> None:
                            f"{[i for i, v in enumerate(sig_ok) if not v]}")
     c = obs.snapshot().counters
     sig_split = {k: c.get(f"stage.digest_signature_batch.{k}_us", 0) / 1e6
-                 for k in ("h2d", "kernel", "d2h", "fold")}
+                 for k in ("pack", "h2d", "kernel", "d2h", "fold")}
     log(f"[verify] check_signatures=True over all {n} records: every "
         f"digest and signature True but row {sig_row}'s flipped signature "
         f"bit, {dt_sig:.3f} s = {n / dt_sig:.1f} records/s; {ds.launches} "
@@ -1514,6 +1645,91 @@ def timed_err(name: str, kernel, plain) -> int:
     return d
 
 
+def grouped_flush(results: dict, err: dict) -> dict:
+    """digest_sig as one grouped launch over phase 5's first flush (the
+    first records of shard 0, up to the build's flush limits), held
+    against the plain version entry by entry and timed beside it."""
+    staging, table, words = results.pop("flush_group")
+    x = staging.cuda()
+    got = torch.empty(words, dtype=torch.int32, device="cuda")
+    want = torch.empty_like(got)
+
+    def kernel():
+        ds.digest_sig_group(x, table, got, n=4)
+
+    def plain():
+        for e, views in zip(table, ds.group_views(want, table)):
+            rows, width = int(e["rows"]), int(e["width"])
+            off = int(e["in_off"])
+            mat = x[off:off + rows * (width + PAD)].reshape(rows, -1)
+            for dst, src in zip(views, ds.digest_sig_plain(
+                    mat, n=4, block=int(e["kblock"]))):
+                dst.copy_(src)
+
+    kernel()
+    plain()
+    torch.cuda.synchronize()
+    d = max(int((g.long() - w.long()).abs().max())
+            for gv, wv in zip(ds.group_views(got, table),
+                              ds.group_views(want, table))
+            for g, w in zip(gv, wv))
+    if d:
+        raise RuntimeError(f"digest_sig grouped over a build flush: max "
+                           f"|kernel - plain| = {d}")
+    err["digest_sig"] = max(err["digest_sig"], d)
+    ms = time_ms(kernel)
+    pms = time_ms(plain, 20)
+    nbytes = ops = 0
+    for e in table:
+        b, o = digest_cost(int(e["rows"]), int(e["width"]),
+                           int(e["kblock"]), 4)
+        nbytes, ops = nbytes + b, ops + o
+    bnd, by = bound(nbytes, ops)
+    shapes = [[int(e["rows"]), int(e["width"]) + PAD] for e in table]
+    log(f"[kernels] digest_sig grouped over phase 5's first flush "
+        f"({len(table)} buckets, {int(table['rows'].sum())} padded rows, "
+        f"{nbytes} bytes): {ms:.4g} ms/launch, bound {bnd:.4g} ms ({by}), "
+        f"plain {pms:.4g} ms; == plain")
+    return {"ms": ms, "plain_ms": pms, "bound_ms": bnd, "bound_by": by,
+            "bytes": nbytes, "buckets": shapes, "max_abs_err": d}
+
+
+def template_scan(z: torch.Tensor, pat: np.ndarray):
+    """The (rows, W + 128) row-group's bytes relaid at W + 16 and scanned
+    by ``pattern_scan_batch``, whose template was the row-group scan's
+    body before it got its own: the same work on the same bytes."""
+    width = z.shape[1] - PAD
+    z16 = torch.zeros((z.shape[0], width + 16), dtype=torch.uint8,
+                      device="cuda")
+    z16[:, :width] = z[:, :width]
+    want = ps.pattern_scan_rowgroup(z, pat, 16)
+    if not torch.equal(ps.pattern_scan_batch(z16, pat, 16), want):
+        raise RuntimeError("pattern_scan_batch != pattern_scan_rowgroup on "
+                           "the same bytes")
+    return lambda: ps.pattern_scan_batch(z16, pat, 16)
+
+
+def rowgroup_worst_case(rows: int, width: int, err: dict) -> dict:
+    """pattern_scan_rowgroup at the store's shape on the inputs where its
+    early exit never fires, against the plain version and timed beside
+    the shared template on the same bytes; ``ms`` is the slower input's."""
+    out = {}
+    for label, (m, p) in zip(("a x 16", "pattern repeated"),
+                             worst_case_inputs(rows, width)):
+        x = torch.from_numpy(m).cuda()
+        err["pattern_scan_rowgroup"] = max(
+            err["pattern_scan_rowgroup"], timed_err(
+                "pattern_scan_rowgroup worst case",
+                lambda: ps.pattern_scan_rowgroup(x, p, 16),
+                lambda: ps.pattern_scan_rowgroup_plain(x, p, 16)))
+        out[label] = {"ms": time_ms(lambda: ps.pattern_scan_rowgroup(x, p,
+                                                                      16)),
+                      "template_ms": time_ms(template_scan(x, p))}
+    slow = max(out.values(), key=lambda c: c["ms"])
+    return {"ms": slow["ms"], "template_ms": slow["template_ms"],
+            "shape": [rows, width + PAD], "cases": out}
+
+
 def kernel_line(results: dict, store: ColumnStore) -> dict:
     """Each kernel at its main path's dominant shape: checked against its
     plain version on the very inputs it is then timed on."""
@@ -1537,8 +1753,11 @@ def kernel_line(results: dict, store: ColumnStore) -> dict:
         y, n=4, block=kblock), lambda: ds.digest_sig_plain(
         y, n=4, block=kblock))
     dms = time_ms(lambda: ds.digest_sig_partials_batch(y, n=4, block=kblock))
+    dms_read = time_ms_read_flush(lambda: ds.digest_sig_partials_batch(
+        y, n=4, block=kblock))
     dplain = time_ms(lambda: ds.digest_sig_plain(y, n=4, block=kblock), 20)
     b_dig, by_dig = bound(*digest_cost(drows, dwidth, kblock, 4))
+    grouped = grouped_flush(results, err)
     # the row-group scan on the store's fullest row-group of phase 8's
     # dominant width: the live rows, as the wrapper copies them
     _, gwidth = results["rowgroup_shape"]
@@ -1552,8 +1771,20 @@ def kernel_line(results: dict, store: ColumnStore) -> dict:
           lambda: ps.pattern_scan_rowgroup(z, zpat, 16),
           lambda: ps.pattern_scan_rowgroup_plain(z, zpat, 16))
     gms = time_ms(lambda: ps.pattern_scan_rowgroup(z, zpat, 16))
+    gms_read = time_ms_read_flush(
+        lambda: ps.pattern_scan_rowgroup(z, zpat, 16))
     gplain = time_ms(lambda: ps.pattern_scan_rowgroup_plain(z, zpat, 16), 20)
     b_grp, by_grp = bound(*rowgroup_cost(lens.size, gwidth, 16))
+    g_old = time_ms(template_scan(z, zpat))
+    worst = rowgroup_worst_case(int(lens.size), gwidth, err)
+    log(f"[kernels] pattern_scan_rowgroup at the store's shape "
+        f"({lens.size} x {gwidth + PAD}, P=16): {gms:.4g} ms (read flush "
+        f"{gms_read:.4g}), the shared template on the same bytes "
+        f"{g_old:.4g} ms, bound {b_grp:.4g} ms; worst case {worst['ms']:.4g} "
+        f"ms (template {worst['template_ms']:.4g} ms)")
+    floor = floor_numbers({
+        "digest_sig": digest_cost(drows, dwidth, kblock, 4)[0],
+        "pattern_scan_rowgroup": rowgroup_cost(lens.size, gwidth, 16)[0]})
     # the gateway's multi-pattern scan at its dominant bucket: mixed
     # pattern lengths 1..16, a quarter of the rows inert padding
     mrows, mwidth = results["gateway_shape"]
@@ -1606,7 +1837,7 @@ def kernel_line(results: dict, store: ColumnStore) -> dict:
     # flash_attention: phase 4's prefill case heads the entry, every case
     # beside it, each checked on the inputs it was timed on
     fl = results["flash"]["prefill"]
-    return {"kernels": [
+    return {"floor": floor, "kernels": [
         {"name": "pattern_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/pattern_scan/csrc/pattern_scan.cu",
          "replaces": "src/repro/kernels/pattern_scan/pattern_scan.py:122",
@@ -1624,7 +1855,8 @@ def kernel_line(results: dict, store: ColumnStore) -> dict:
          "max_abs_err": err["digest_sig"],
          "ms": dms, "plain_ms": dplain, "bound_ms": b_dig,
          "bound_by": by_dig, "library_ms": None,
-         "shape": [drows, dwidth + 128],
+         "shape": [drows, dwidth + 128], "ms_read_flush": dms_read,
+         "grouped": grouped,
          "launches_by_phase": {
              "build": results["digest_sig_launches"],
              "derive": results["derive_digest_sig_launches"],
@@ -1636,7 +1868,9 @@ def kernel_line(results: dict, store: ColumnStore) -> dict:
          "max_abs_err": err["pattern_scan_rowgroup"],
          "ms": gms, "plain_ms": gplain, "bound_ms": b_grp,
          "bound_by": by_grp, "library_ms": None,
-         "shape": [int(lens.size), gwidth + PAD], "pattern_len": 16},
+         "shape": [int(lens.size), gwidth + PAD], "pattern_len": 16,
+         "ms_read_flush": gms_read, "template_ms": g_old,
+         "worst_case": worst},
         {"name": "pattern_scan_batch_multi", "route": "cuda",
          "source": "src/repro_torch/kernels/pattern_scan/csrc/pattern_scan.cu",
          "replaces": "src/repro/kernels/pattern_scan/pattern_scan.py:84",

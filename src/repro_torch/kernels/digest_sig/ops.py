@@ -2,9 +2,11 @@
 
 ``digest_signature_batch`` stacks a ragged batch of record payloads into
 half-step width buckets (the shared :mod:`repro_torch.kernels.bucketing`
-rule), copies each bucket's padded matrix to the device, sweeps it
-**once** through the fused kernel, copies the partials and hashes back,
-and finishes on the host:
+rule), packs every bucket's padded matrix into one (pinned) staging
+buffer beside a descriptor table, copies it to the device in **one**
+transfer, sweeps all buckets in **one** launch of the fused kernel,
+copies the partials and hashes back in one transfer and synchronizes
+once; then it finishes each bucket on the host:
 
 * Adler-32: the kernel's ``(S, T)`` partials reduce through
   :func:`repro_torch.kernels.adler32.ops.combine_partials` — entry-wise
@@ -18,12 +20,15 @@ and finishes on the host:
 columnar derive already packed in the kernel's layout: one launch, no
 bucketing.
 
-Each launch's time is split into host-to-device copy, kernel,
-device-to-host copy and host fold, published as the
-``stage.<wrapper>.{h2d,kernel,d2h,fold}_us`` counters.
+Each call's time is split into host packing (batch wrapper only),
+host-to-device copy, kernel, device-to-host copy and host fold,
+published as the ``stage.<wrapper>.{pack,h2d,kernel,d2h,fold}_us``
+counters; the batch wrapper times its copies and its kernel on the card
+with CUDA events, read after its one synchronize.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
@@ -35,9 +40,11 @@ from repro_torch.kernels.adler32.ops import combine_partials
 from repro_torch.kernels.bucketing import (as_u8, check_rowgroup,
                                            payload_width, quantize_count)
 from repro_torch.obs.kernels import record_dispatch
-from .digest_sig import BLOCK, HPAD, digest_sig_partials_batch
+from .digest_sig import (BLOCK, HPAD, digest_sig_group,
+                         digest_sig_partials_batch, group_layout, group_views)
 
-__all__ = ["digest_signature_batch", "digest_signature_rowgroup"]
+__all__ = ["digest_signature_batch", "digest_signature_rowgroup",
+           "pack_batch"]
 
 
 def _sig_geometry(bits: int | None, n: int | None, k: int | None
@@ -86,11 +93,74 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+class _Clock:
+    """Device time of a call's stages: each ``span`` is bracketed by CUDA
+    events on the card (read after the call's one synchronize, so timing
+    adds none, and host time between the spans is not counted), by the
+    host clock on the CPU, where every stage runs synchronously."""
+
+    def __init__(self, dev: torch.device) -> None:
+        self.cuda = dev.type == "cuda"
+        self.marks: list = []
+
+    def _mark(self) -> None:
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append(ev)
+        else:
+            self.marks.append(time.perf_counter())
+
+    @contextlib.contextmanager
+    def span(self):
+        self._mark()
+        yield
+        self._mark()
+
+    def spans_us(self) -> list[int]:
+        pairs = zip(self.marks[::2], self.marks[1::2])
+        if self.cuda:
+            return [int(a.elapsed_time(b) * 1e3) for a, b in pairs]
+        return [int((b - a) * 1e6) for a, b in pairs]
+
+
+def pack_batch(bufs: list[np.ndarray], *, pin: bool = False
+               ) -> tuple[torch.Tensor, np.ndarray, int, list[list[int]]]:
+    """Pack a ragged batch into one group: each half-step width bucket a
+    ``(quantized rows, width + HPAD)`` zero-padded matrix at its table
+    offset of one staging buffer (page-locked when ``pin``).
+
+    Returns ``(staging, table, out_words, members)``: the 1-D uint8
+    buffer, its :data:`~repro_torch.kernels.digest_sig.digest_sig.
+    GROUP_DTYPE` table, the int32 words of the group's output and, per
+    entry, the indices of ``bufs`` in its rows.
+    """
+    buckets: dict[int, list[int]] = {}
+    for i, buf in enumerate(bufs):
+        # BLOCK is the Adler overflow *bound*, not a width floor: payloads
+        # below one block take sub-block width buckets (the whole row is a
+        # single Adler block) — see payload_width
+        buckets.setdefault(payload_width(buf.size, BLOCK), []).append(i)
+    members = list(buckets.values())
+    table, in_bytes, out_words = group_layout(
+        [(quantize_count(len(idxs)), width, min(BLOCK, width))
+         for width, idxs in buckets.items()])
+    staging = torch.empty(in_bytes, dtype=torch.uint8, pin_memory=pin)
+    flat = staging.numpy()
+    flat[:] = 0
+    for e, idxs in zip(table, members):
+        off, rows, width = int(e["in_off"]), int(e["rows"]), int(e["width"])
+        mat = flat[off:off + rows * (width + HPAD)].reshape(rows, -1)
+        for row, i in enumerate(idxs):
+            mat[row, :bufs[i].size] = bufs[i]
+    return staging, table, out_words, members
+
+
 def digest_signature_batch(payloads, *, bits: int | None = None,
                            n: int | None = None, k: int | None = None,
                            device="cuda") -> tuple[np.ndarray, np.ndarray]:
-    """Adler-32 digests **and** n-gram signatures of a ragged batch,
-    one fused kernel sweep per width bucket, on ``device``.
+    """Adler-32 digests **and** n-gram signatures of a ragged batch: one
+    fused kernel launch over all its width buckets, on ``device``.
 
     Returns ``(digests, signatures)``: uint32 ``(B,)`` matching
     ``zlib.adler32`` and uint64 ``(B, bits // 64)`` matching
@@ -106,39 +176,41 @@ def digest_signature_batch(payloads, *, bits: int | None = None,
     sigs = np.zeros((nrows, bits // 64), np.uint64)
     if nrows == 0:
         return digests, sigs
-    buckets: dict[int, list[int]] = {}
-    for i, buf in enumerate(bufs):
-        # BLOCK is the Adler overflow *bound*, not a width floor: payloads
-        # below one block take sub-block width buckets (the whole row is a
-        # single Adler block) — see payload_width
-        buckets.setdefault(payload_width(buf.size, BLOCK), []).append(i)
-    reg = obs.registry()
-    for width, idxs in buckets.items():
-        kblock = min(BLOCK, width)  # sub-2048 widths are one Adler block
-        padded = np.zeros((quantize_count(len(idxs)), width + HPAD), np.uint8)
-        for row, i in enumerate(idxs):
-            padded[row, :bufs[i].size] = bufs[i]
-        lengths = np.asarray([bufs[i].size for i in idxs], np.int64)
-        record_dispatch("digest_signature_batch", width=width,
-                        rows=len(idxs), padded_rows=padded.shape[0],
-                        useful_bytes=int(lengths.sum()))
-        t0 = time.perf_counter()
-        x = torch.from_numpy(padded).to(dev)
-        _sync(dev)
-        t1 = time.perf_counter()
-        s, t, h = digest_sig_partials_batch(x, n=n, block=kblock)
-        _sync(dev)
-        t2 = time.perf_counter()
-        s, t, h = s.cpu().numpy(), t.cpu().numpy(), h.cpu().numpy()
-        t3 = time.perf_counter()
+    cuda = dev.type == "cuda"
+    t0 = time.perf_counter()
+    staging, table, words, members = pack_batch(bufs, pin=cuda)
+    lengths = [np.asarray([bufs[i].size for i in idxs], np.int64)
+               for idxs in members]
+    for e, lens in zip(table, lengths):
+        record_dispatch("digest_signature_batch", width=int(e["width"]),
+                        rows=lens.size, padded_rows=int(e["rows"]),
+                        useful_bytes=int(lens.sum()))
+    t1 = time.perf_counter()
+    clock = _Clock(dev)
+    x = torch.empty(staging.shape, dtype=torch.uint8, device=dev)
+    out = torch.empty(words, dtype=torch.int32, device=dev)
+    res = torch.empty(words, dtype=torch.int32, pin_memory=cuda)
+    with clock.span():
+        x.copy_(staging, non_blocking=True)
+    with clock.span():
+        digest_sig_group(x, table, out, n=n)
+    with clock.span():
+        res.copy_(out, non_blocking=True)
+    _sync(dev)
+    t2 = time.perf_counter()
+    views = group_views(res.numpy(), table)
+    for e, idxs, lens, (s, t, h) in zip(table, members, lengths, views):
+        width = int(e["width"])
         digests[idxs], sigs[idxs] = _host_fold(
-            s, t, h, lengths, width=width, bits=bits, n=n, k=k, block=kblock)
-        t4 = time.perf_counter()
-        reg.fold_counters({"h2d_us": int((t1 - t0) * 1e6),
-                           "kernel_us": int((t2 - t1) * 1e6),
-                           "d2h_us": int((t3 - t2) * 1e6),
-                           "fold_us": int((t4 - t3) * 1e6)},
-                          prefix="stage.digest_signature_batch.")
+            s, t, h, lens, width=width, bits=bits, n=n, k=k,
+            block=int(e["kblock"]))
+    t3 = time.perf_counter()
+    h2d, kernel, d2h = clock.spans_us()
+    obs.registry().fold_counters({"pack_us": int((t1 - t0) * 1e6),
+                                  "h2d_us": h2d, "kernel_us": kernel,
+                                  "d2h_us": d2h,
+                                  "fold_us": int((t3 - t2) * 1e6)},
+                                 prefix="stage.digest_signature_batch.")
     return digests, sigs
 
 

@@ -5,7 +5,8 @@ matrix is ``mask[r, i] = AND_{j<P} buf[r, i + j] == p[j]``. Rows carry a
 zero tail, so every window starting in a row is in bounds and no halo
 input is needed (the Pallas kernel's halo existed only because its
 BlockSpecs could not overlap). Two layouts and two pattern forms, one
-CUDA kernel:
+CUDA source; the single-pattern row-group scan has its own body (a
+candidate filter with early exit), the other three share one template:
 
 * batches, ``(B, W + MAX_PATTERN)``: :func:`pattern_scan_batch`, plain
   version :func:`pattern_scan_plain`, counted in ``launches``;
@@ -26,6 +27,7 @@ uses its plain version for a CPU tensor; any other device raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -87,21 +89,34 @@ def pattern_scan_rowgroup_plain(matrix: torch.Tensor, pattern: np.ndarray,
     return _plain(matrix, pattern, pat_len, width)
 
 
+@functools.cache
+def _entry(entry: str) -> ctypes._CFuncPtr:
+    """The C entry point ``entry`` of ``pattern_scan.cu``, resolved and
+    typed once per process. Every entry takes (buf, mask, rows, width),
+    the row-group ones then the row stride, and then the single-pattern
+    ones (pat_lo, pat_hi, pat_len), the multi ones (pats, lens, max_len),
+    and last the stream."""
+    from repro_torch.kernels._build import library
+
+    fn = getattr(library("pattern_scan"), entry)
+    stride = [ctypes.c_int64] if "rowgroup" in entry else []
+    pattern = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+               if entry.endswith("_multi")
+               else [ctypes.c_uint64, ctypes.c_uint64, ctypes.c_int])
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                    ctypes.c_int64] + stride + pattern + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _launch(entry: str, padded: torch.Tensor, pattern: np.ndarray,
             pat_len: int, width: int) -> torch.Tensor:
     """Launch the C entry point ``entry`` of ``pattern_scan.cu``."""
-    from repro_torch.kernels._build import library
-
     if not padded.is_contiguous() or padded.data_ptr() % 16:
         raise ValueError("padded must be contiguous and 16-byte aligned")
-    fn = getattr(library("pattern_scan"), entry)
+    fn = _entry(entry)
     # the row-group entry also takes the row stride, after the width
     stride = [padded.shape[1]] if entry == "pattern_scan_rowgroup" else []
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                    ctypes.c_int64] + [ctypes.c_int64] * len(stride)
-                   + [ctypes.c_uint64, ctypes.c_uint64, ctypes.c_int,
-                      ctypes.c_void_p])
-    fn.restype = ctypes.c_int
     rows = padded.shape[0]
     mask = torch.empty((rows, width), dtype=torch.uint8, device=padded.device)
     lo = int.from_bytes(pattern[:8].tobytes(), "little")
@@ -217,23 +232,16 @@ def _launch_multi(entry: str, padded: torch.Tensor,
                   pattern_mat: torch.Tensor, pat_lens: torch.Tensor,
                   max_len: int, width: int) -> torch.Tensor:
     """Launch the per-row-pattern C entry point ``entry``."""
-    from repro_torch.kernels._build import library
-
     for name, t in (("padded", padded), ("pattern_mat", pattern_mat)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte "
                              f"aligned")
     if not pat_lens.is_contiguous():
         raise ValueError("pat_lens must be contiguous")
-    fn = getattr(library("pattern_scan"), entry)
+    fn = _entry(entry)
     # the row-group entry also takes the row stride, after the width
     stride = ([padded.shape[1]] if entry == "pattern_scan_rowgroup_multi"
               else [])
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                    ctypes.c_int64] + [ctypes.c_int64] * len(stride)
-                   + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                      ctypes.c_void_p])
-    fn.restype = ctypes.c_int
     rows = padded.shape[0]
     mask = torch.empty((rows, width), dtype=torch.uint8, device=padded.device)
     with torch.cuda.device(padded.device):
