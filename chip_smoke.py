@@ -22,12 +22,15 @@ plain PyTorch version:
    ``pattern_scan_rowgroup_multi`` with mixed pattern lengths and inert
    pad rows, ``adler32_partials_batch`` with all-0xFF and empty rows;
    ``digest_sig``'s general body at n = 24 and 129 and block 4096;
-   ``pattern_scan_rowgroup`` where its early exit never fires);
+   ``pattern_scan_rowgroup`` where its early exit never fires;
+   ``pattern_scan_batch_multi`` with ``lens[r] < max_len`` on most rows);
 5. main path: ``build_index(device="cuda")``; every digest against
    ``zlib.adler32``, a seeded sample of signatures against
    ``signature_of``, and a ``save``/``load`` round trip;
 6. serve: ``IndexQueryService(device="cuda")`` over 8 requests, each
    held against the ``full_scan_search`` / ``full_scan_regex`` oracles;
+   ``pattern_scan_batch`` launched once per kernel-path scan batch (each
+   ``find_pattern_mask_batch`` call sweeps all its width buckets);
 7. derive: ``derive(device="cuda")`` of the same corpus into a ``.repcol``
    store; its columns bit-equal to phase 5's index, a seeded sample of
    payloads and every timestamp equal to the source records, and the
@@ -43,7 +46,9 @@ plain PyTorch version:
    item by item;
 10. gateway: ``ArchiveGateway(index, shards=4, device="cuda")`` serving
     8 client threads, each submitting phase 6's requests 4 times in a
-    seeded order; every hit list equal to phase 6's; then
+    seeded order; every hit list equal to phase 6's;
+    ``pattern_scan_batch_multi`` launched once per ``gw.kernel_dispatch``
+    span (one ``find_pattern_masks_multi`` call a chunk); then
     ``find_pattern_masks_multi_rowgroup`` on the store's fullest
     row-group of phase 8's dominant width with phase 8's patterns, equal
     to ``find_pattern_mask_rowgroup`` once per pattern;
@@ -63,13 +68,19 @@ plain PyTorch version:
 
 The ``kernels`` line holds each kernel against its plain version on the
 inputs it is then timed on, at its main path's dominant shape; besides,
-``digest_sig`` as one grouped launch over phase 5's first flush (all its
-width buckets), ``pattern_scan_rowgroup`` on the store's shape where the
-early exit never fires (both beside the template it shared with
-``pattern_scan_batch`` on the same bytes), and the floor under small
-launches: an empty kernel (``kernels/empty/csrc/empty.cu``) and
-``torch.Tensor.copy_`` of #2's and #3's byte counts, under the same
-timing; the read-flushed times are extra numbers.
+each grouped kernel as one launch over a real call's width buckets
+(``digest_sig`` over phase 5's first flush, ``pattern_scan_batch`` over
+phase 6's scan batch with the most buckets, ``pattern_scan_batch_multi``
+over phase 10's chunk with the most buckets), each early-exit scan where
+its early exit never fires (``pattern_scan_rowgroup`` at the store's
+shape, ``pattern_scan_batch`` and ``pattern_scan_batch_multi`` at their
+dominant shapes; each beside the old shared template, which only
+``pattern_scan_rowgroup_multi`` runs now, with the same pattern on every
+row over the same bytes), ``pattern_scan_batch_multi`` with ``lens[r] <
+max_len`` on most rows, and the floor under small launches: an empty
+kernel (``kernels/empty/csrc/empty.cu``) and ``torch.Tensor.copy_`` of
+#1's, #2's and #3's byte counts, under the same timing; the
+read-flushed times are extra numbers.
 
 Phase 4 also holds ``flash_attention_bhsd`` against its plain version on
 each of its three paths: f32 prefill (CUDA cores) at the prefill shape,
@@ -424,15 +435,15 @@ def rowgroup_inputs(rng, rows: int, width: int, live: int
     return m, lengths.astype(np.int64), pat
 
 
-def worst_case_inputs(rows: int, width: int
+def worst_case_inputs(rows: int, width: int, tail: int = PAD
                       ) -> list[tuple[np.ndarray, np.ndarray]]:
-    """Row-groups on which the row-group scan's early exit never fires:
-    every byte ``a`` with the pattern ``a`` x 16, and text made of phase
-    8's 16-byte pattern repeated (each chunk holds a whole match)."""
+    """(rows, W + tail) matrices on which the early-exit scans never exit
+    early: every byte ``a`` with the pattern ``a`` x 16, and text made of
+    phase 8's 16-byte pattern repeated (each chunk holds a whole match)."""
     pat = np.frombuffer(b"nginx/1.25\r\nDate", np.uint8)
-    same = np.zeros((rows, width + PAD), np.uint8)
+    same = np.zeros((rows, width + tail), np.uint8)
     same[:, :width] = ord("a")
-    rep = np.zeros((rows, width + PAD), np.uint8)
+    rep = np.zeros((rows, width + tail), np.uint8)
     rep[:, :width] = np.resize(pat, width)
     return [(same, np.full(16, ord("a"), np.uint8)), (rep, pat.copy())]
 
@@ -611,6 +622,17 @@ def multi_inputs(rng, rows: int, width: int, tail: int, live: int
             torch.from_numpy(lens).cuda(), int(lens.max()))
 
 
+def short_lens(lens: torch.Tensor) -> torch.Tensor:
+    """``lens`` with three rows in four cut to at most 2, and, where the
+    rows allow, lengths 0, -3 and 40 (outside [1, 16]) on rows 1-3."""
+    out = lens.clone()
+    cut = out.shape[0] - out.shape[0] // 4
+    out[:cut] = torch.clamp(out[:cut], max=2)
+    for r, v in zip(range(1, out.shape[0]), (0, -3, 40)):
+        out[r] = v
+    return out
+
+
 def multi_checks(results: dict) -> None:
     """pattern_scan_batch_multi and pattern_scan_rowgroup_multi on the card
     against their plain versions: mixed pattern lengths 1..16 in one
@@ -637,6 +659,14 @@ def multi_checks(results: dict) -> None:
                 raise RuntimeError(
                     f"{name} B={rows} live={live} W={width}: max |kernel - "
                     f"plain| = {d}, plain matches {int(want.sum())}")
+            if kernel is ps.pattern_scan_batch_multi:
+                # the per-row loop bound: lens[r] < max_len on most rows,
+                # and lengths outside [1, max_len]
+                short = short_lens(n)
+                if not torch.equal(kernel(x, p, short, 16),
+                                   plain(x, p, short, 16)):
+                    raise RuntimeError(f"{name} B={rows} W={width}: card != "
+                                       f"plain with lens[r] < max_len")
         ms = time_ms(lambda: kernel(x, p, n, max_len))
         pms = time_ms(lambda: plain(x, p, n, max_len), 20)
         b, _ = bound(*multi_cost(rows, width, tail, n.cpu().numpy()))
@@ -834,6 +864,42 @@ def hit_keys(hits) -> list:
              h.positions.tolist(), h.excerpt) for h in hits]
 
 
+class CallSpy:
+    """Counts the calls of a wrapper of ``repro_torch.kernels.pattern_scan``
+    while a phase runs (the engine and the gateway import it from the
+    package at each call) and keeps the arguments of the call with the
+    most width buckets, the most bytes among equals: a real call's
+    buckets, to time as one grouped launch."""
+
+    def __init__(self, name: str) -> None:
+        self.pkg = importlib.import_module("repro_torch.kernels.pattern_scan")
+        self.name = name
+        self.fn = getattr(self.pkg, name)
+        self.calls = 0
+        self.key: tuple = ()
+        self.best: tuple | None = None
+        self.lock = threading.Lock()
+
+    def __enter__(self) -> "CallSpy":
+        from repro_torch.kernels.bucketing import dispatch_count
+
+        def spy(bufs, *args, **kw):
+            bufs = list(bufs)
+            sizes = [len(b) for b in bufs]
+            key = (dispatch_count(sizes, kw["block"]), sum(sizes))
+            with self.lock:
+                self.calls += 1
+                if key > self.key:
+                    self.key, self.best = key, (bufs, args, kw["block"])
+            return self.fn(bufs, *args, **kw)
+
+        setattr(self.pkg, self.name, spy)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        setattr(self.pkg, self.name, self.fn)
+
+
 # -- phase 5 ---------------------------------------------------------------
 def main_build(paths: list[str], workdir: Path, results: dict) -> CdxIndex:
     obs.reset()
@@ -919,16 +985,25 @@ def serve(index: CdxIndex, paths: list[str], results: dict) -> dict:
     obs.reset()
     ps.launches = 0
     t0 = time.perf_counter()
-    with IndexQueryService(index, device="cuda") as svc:
+    with CallSpy("find_pattern_mask_batch") as spy, \
+            IndexQueryService(index, device="cuda") as svc:
         responses = svc.serve(reqs)
         stats = dict(svc.engine.stats)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     results["pattern_scan_launches"] = ps.launches
     results["pattern_scan_shape"] = dominant_shape("find_pattern_mask_batch")
+    results["scan_call"] = spy.best
     c = obs.snapshot().counters
     split = {k: c.get(f"stage.find_pattern_mask_batch.{k}_us", 0) / 1e6
-             for k in ("h2d", "kernel", "d2h")}
+             for k in ("pack", "h2d", "kernel", "d2h")}
+    buckets = int(c.get("kernel.find_pattern_mask_batch.dispatches", 0))
+    log(f"[serve] {ps.launches} pattern_scan_batch launches for {spy.calls} "
+        f"kernel-path scan batches ({buckets} width buckets; the engine's "
+        f"{stats['batches']} batches include host-path ones)")
+    if ps.launches != spy.calls or not spy.calls:
+        raise RuntimeError(f"{ps.launches} pattern_scan_batch launches for "
+                           f"{spy.calls} find_pattern_mask_batch calls")
     row_of = {(index.shard_paths[int(s)], int(o)): i
               for i, (s, o) in enumerate(zip(index.shard_id, index.offset))}
     served = []
@@ -957,7 +1032,10 @@ def serve(index: CdxIndex, paths: list[str], results: dict) -> dict:
         raise RuntimeError(f"broad literal selects only {share:.3f} of the "
                            f"response records as candidates")
     results["serve"] = {"requests": served, "seconds": dt, "stats": stats,
-                        "scan_split_s": split, "broad_share": share}
+                        "scan_split_s": split, "broad_share": share,
+                        "kernel_path_batches": spy.calls,
+                        "width_buckets": buckets,
+                        "pattern_scan_launches": ps.launches}
     log(f"[serve] {len(reqs)} requests in {dt:.3f} s; broad literal "
         f"candidates = {share:.3f} of the {n_resp} response records; scan "
         f"split (s): " + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
@@ -1259,7 +1337,8 @@ def gateway_phase(index: CdxIndex, checked: dict, results: dict) -> None:
     lock = threading.Lock()
     errors: list = []
     t0 = time.perf_counter()
-    with ArchiveGateway(index, shards=GW_SHARDS, device="cuda") as gw:
+    with CallSpy("find_pattern_masks_multi") as spy, \
+            ArchiveGateway(index, shards=GW_SHARDS, device="cuda") as gw:
         def client(order) -> None:
             try:
                 futs = [(REQUESTS[i][1], gw.submit(REQUESTS[i][1]))
@@ -1293,8 +1372,10 @@ def gateway_phase(index: CdxIndex, checked: dict, results: dict) -> None:
     lat = sorted(r.latency_s for _, r in responses)
     c = obs.snapshot().counters
     split = {k: c.get(f"stage.find_pattern_masks_multi.{k}_us", 0) / 1e6
-             for k in ("h2d", "kernel", "d2h")}
+             for k in ("pack", "h2d", "kernel", "d2h")}
     results["gateway_shape"] = dominant_shape("find_pattern_masks_multi")
+    results["gateway_chunk"] = spy.best
+    spans = snap.get("stages", {}).get("kernel_dispatch", {}).get("count")
     keep = ("requests", "responses", "coalesced", "unique_scans",
             "scan_batches", "kernel_dispatches", "dispatches_per_request",
             "records_scanned", "records_fetched", "host_scans",
@@ -1303,7 +1384,9 @@ def gateway_phase(index: CdxIndex, checked: dict, results: dict) -> None:
         "submissions": want, "seconds": dt, "requests_per_s": want / dt,
         "metrics": {k: snap[k] for k in keep},
         "stages": snap.get("stages", {}), "scan_split_s": split,
-        "multi_launches": ps.multi_launches}
+        "multi_launches": ps.multi_launches,
+        "find_pattern_masks_multi_calls": spy.calls,
+        "kernel_dispatch_spans": spans}
     log(f"[gateway] {GW_SHARDS} shards, {GW_CLIENTS} clients x "
         f"{GW_REPEATS} x {len(REQUESTS)} requests = {want} submissions in "
         f"{dt:.3f} s = {want / dt:.2f} requests/s; every hit list == phase "
@@ -1321,6 +1404,14 @@ def gateway_phase(index: CdxIndex, checked: dict, results: dict) -> None:
     if min(snap["coalesced"], snap["kernel_dispatches"],
            ps.multi_launches) <= 0:
         raise RuntimeError("the gateway neither coalesced nor launched")
+    log(f"[gateway] {ps.multi_launches} pattern_scan_batch_multi launches "
+        f"for {spy.calls} find_pattern_masks_multi calls and {spans} "
+        f"gw.kernel_dispatch spans ({snap['kernel_dispatches']} width "
+        f"buckets, {snap['scan_batches']} drain batches)")
+    if not ps.multi_launches == spy.calls == (
+            spy.calls if spans is None else spans):
+        raise RuntimeError(f"{ps.multi_launches} pattern_scan_batch_multi "
+                           f"launches for {spy.calls} calls, {spans} spans")
 
 
 def rowgroup_multi_phase(store: ColumnStore, results: dict) -> None:
@@ -1694,40 +1785,125 @@ def grouped_flush(results: dict, err: dict) -> dict:
             "bytes": nbytes, "buckets": shapes, "max_abs_err": d}
 
 
-def template_scan(z: torch.Tensor, pat: np.ndarray):
-    """The (rows, W + 128) row-group's bytes relaid at W + 16 and scanned
-    by ``pattern_scan_batch``, whose template was the row-group scan's
-    body before it got its own: the same work on the same bytes."""
-    width = z.shape[1] - PAD
-    z16 = torch.zeros((z.shape[0], width + 16), dtype=torch.uint8,
-                      device="cuda")
-    z16[:, :width] = z[:, :width]
-    want = ps.pattern_scan_rowgroup(z, pat, 16)
-    if not torch.equal(ps.pattern_scan_batch(z16, pat, 16), want):
-        raise RuntimeError("pattern_scan_batch != pattern_scan_rowgroup on "
-                           "the same bytes")
-    return lambda: ps.pattern_scan_batch(z16, pat, 16)
+def template_scan(z: torch.Tensor, pat: np.ndarray, want: torch.Tensor):
+    """``z``'s bytes (rows of W + tail) relaid at W + 128 and scanned by
+    ``pattern_scan_rowgroup_multi`` with ``pat`` (16 bytes) on every row:
+    the old shared template, which only #5 runs now, doing the same work
+    on the same bytes. Held against ``want``, the mask of the kernel it
+    is timed beside."""
+    rows, width = want.shape
+    z128 = torch.zeros((rows, width + PAD), dtype=torch.uint8, device="cuda")
+    z128[:, :width] = z[:, :width]
+    pats = torch.from_numpy(np.tile(pat, (rows, 1))).cuda()
+    lens = torch.full((rows,), 16, dtype=torch.int32, device="cuda")
+    if not torch.equal(ps.pattern_scan_rowgroup_multi(z128, pats, lens, 16),
+                       want):
+        raise RuntimeError("the template != the kernel on the same bytes")
+    return lambda: ps.pattern_scan_rowgroup_multi(z128, pats, lens, 16)
 
 
-def rowgroup_worst_case(rows: int, width: int, err: dict) -> dict:
-    """pattern_scan_rowgroup at the store's shape on the inputs where its
-    early exit never fires, against the plain version and timed beside
-    the shared template on the same bytes; ``ms`` is the slower input's."""
+def same_pattern_multi(x: torch.Tensor, p: np.ndarray):
+    """pattern_scan_batch_multi and its plain version over ``x`` with the
+    16-byte ``p`` on every row, its tensors made once on the card."""
+    pt = torch.from_numpy(np.tile(p, (x.shape[0], 1))).cuda()
+    nt = torch.full((x.shape[0],), 16, dtype=torch.int32, device="cuda")
+    return (lambda: ps.pattern_scan_batch_multi(x, pt, nt, 16),
+            lambda: ps.pattern_scan_multi_plain(x, pt, nt, 16))
+
+
+def worst_case(name: str, make, rows: int, width: int, tail: int,
+               err: dict) -> dict:
+    """An early-exit scan at (rows, W + tail) on the inputs where its early
+    exit never fires: ``make(x, p)`` gives the kernel's call and its plain
+    version's, held against each other and timed beside the template on
+    the same bytes; ``ms`` is the slower input's."""
     out = {}
     for label, (m, p) in zip(("a x 16", "pattern repeated"),
-                             worst_case_inputs(rows, width)):
+                             worst_case_inputs(rows, width, tail)):
         x = torch.from_numpy(m).cuda()
-        err["pattern_scan_rowgroup"] = max(
-            err["pattern_scan_rowgroup"], timed_err(
-                "pattern_scan_rowgroup worst case",
-                lambda: ps.pattern_scan_rowgroup(x, p, 16),
-                lambda: ps.pattern_scan_rowgroup_plain(x, p, 16)))
-        out[label] = {"ms": time_ms(lambda: ps.pattern_scan_rowgroup(x, p,
-                                                                      16)),
-                      "template_ms": time_ms(template_scan(x, p))}
+        run, plain = make(x, p)
+        err[name] = max(err[name], timed_err(f"{name} worst case", run,
+                                             plain))
+        out[label] = {"ms": time_ms(run),
+                      "template_ms": time_ms(template_scan(x, p, run()))}
     slow = max(out.values(), key=lambda c: c["ms"])
     return {"ms": slow["ms"], "template_ms": slow["template_ms"],
-            "shape": [rows, width + PAD], "cases": out}
+            "shape": [rows, width + tail], "cases": out}
+
+
+def grouped_scan_call(name: str, call: tuple, err: dict) -> dict:
+    """pattern_scan_batch (``name`` "pattern_scan") or
+    pattern_scan_batch_multi as one grouped launch over the width buckets
+    of a real call of phase 6 or 10, packed as its wrapper packs it, held
+    against the plain version entry by entry and timed beside it."""
+    from repro_torch.kernels.bucketing import as_u8
+    from repro_torch.kernels.pattern_scan.ops import _check_pattern, pack_scan
+
+    bufs, args, block = call
+    arrs = [as_u8(b) for b in bufs]
+    multi = name != "pattern_scan"
+    if multi:
+        vecs, plens = zip(*(_check_pattern(p) for p in args[0]))
+        staging, table, nmask, _ = pack_scan(
+            arrs, block, patterns=list(vecs), plens=list(plens), pin=True)
+    else:
+        vec, plen = _check_pattern(args[0])
+        staging, table, nmask, _ = pack_scan(arrs, block, pin=True)
+    x = staging.cuda()
+    got = torch.empty(nmask, dtype=torch.uint8, device="cuda")
+    want = torch.empty_like(got)
+
+    def entry_inputs(e):
+        rows, width = int(e["rows"]), int(e["width"])
+        off = int(e["in_off"])
+        mat = x[off:off + rows * (width + 16)].reshape(rows, -1)
+        if not multi:
+            return (mat,)
+        poff, loff = int(e["pat_off"]), int(e["len_off"])
+        return (mat, x[poff:poff + 16 * rows].reshape(rows, 16),
+                x[loff:loff + 4 * rows].view(torch.int32))
+
+    def kernel():
+        if multi:
+            ps.pattern_scan_multi_group(x, table, got)
+        else:
+            ps.pattern_scan_group(x, table, got, vec, plen)
+
+    def plain():
+        for e, out in zip(table, ps.group_views(want, table)):
+            if multi:
+                out.copy_(ps.pattern_scan_multi_plain(*entry_inputs(e),
+                                                      int(e["max_len"])))
+            else:
+                out.copy_(ps.pattern_scan_plain(*entry_inputs(e), vec, plen))
+
+    before = ps.multi_launches if multi else ps.launches
+    kernel()
+    after = ps.multi_launches if multi else ps.launches
+    plain()
+    torch.cuda.synchronize()
+    d = max(int((g.int() - w.int()).abs().max())
+            for g, w in zip(ps.group_views(got, table),
+                            ps.group_views(want, table)))
+    if d or after != before + 1:
+        raise RuntimeError(f"{name} grouped over a real call: max |kernel - "
+                           f"plain| = {d}, {after - before} launches")
+    err[name] = max(err[name], d)
+    ms = time_ms(kernel)
+    pms = time_ms(plain, 20)
+    nbytes = ops = 0
+    for e in table:
+        rows, width = int(e["rows"]), int(e["width"])
+        b, o = (multi_cost(rows, width, 16, entry_inputs(e)[2].cpu().numpy())
+                if multi else scan_cost(rows, width, plen))
+        nbytes, ops = nbytes + b, ops + o
+    bnd, by = bound(nbytes, ops)
+    shapes = [[int(e["rows"]), int(e["width"]) + 16] for e in table]
+    log(f"[kernels] {name} grouped over a real call ({len(table)} buckets, "
+        f"{int(table['rows'].sum())} padded rows, {nbytes} bytes): {ms:.4g} "
+        f"ms/launch, bound {bnd:.4g} ms ({by}), plain {pms:.4g} ms; == plain")
+    return {"ms": ms, "plain_ms": pms, "bound_ms": bnd, "bound_by": by,
+            "bytes": nbytes, "buckets": shapes, "max_abs_err": d}
 
 
 def kernel_line(results: dict, store: ColumnStore) -> dict:
@@ -1744,8 +1920,22 @@ def kernel_line(results: dict, store: ColumnStore) -> dict:
     agree("pattern_scan", lambda: ps.pattern_scan_batch(x, pat, 16),
           lambda: ps.pattern_scan_plain(x, pat, 16))
     ms = time_ms(lambda: ps.pattern_scan_batch(x, pat, 16))
+    ms_read = time_ms_read_flush(lambda: ps.pattern_scan_batch(x, pat, 16))
     plain = time_ms(lambda: ps.pattern_scan_plain(x, pat, 16), 20)
     b_scan, by_scan = bound(*scan_cost(rows, width, 16))
+    s_old = time_ms(template_scan(x, pat, ps.pattern_scan_batch(x, pat, 16)))
+    s_worst = worst_case(
+        "pattern_scan", lambda xw, p: (
+            lambda: ps.pattern_scan_batch(xw, p, 16),
+            lambda: ps.pattern_scan_plain(xw, p, 16)),
+        rows, width, 16, err)
+    s_grouped = grouped_scan_call("pattern_scan", results.pop("scan_call"),
+                                  err)
+    log(f"[kernels] pattern_scan at its dominant shape ({rows} x "
+        f"{width + 16}, P=16): {ms:.4g} ms (read flush {ms_read:.4g}), the "
+        f"template on the same bytes {s_old:.4g} ms, bound {b_scan:.4g} ms; "
+        f"worst case {s_worst['ms']:.4g} ms (template "
+        f"{s_worst['template_ms']:.4g} ms)")
     drows, dwidth = results["digest_sig_shape"]
     kblock = min(ds.BLOCK, dwidth)
     y = digest_inputs(rng, drows, dwidth)
@@ -1775,14 +1965,20 @@ def kernel_line(results: dict, store: ColumnStore) -> dict:
         lambda: ps.pattern_scan_rowgroup(z, zpat, 16))
     gplain = time_ms(lambda: ps.pattern_scan_rowgroup_plain(z, zpat, 16), 20)
     b_grp, by_grp = bound(*rowgroup_cost(lens.size, gwidth, 16))
-    g_old = time_ms(template_scan(z, zpat))
-    worst = rowgroup_worst_case(int(lens.size), gwidth, err)
+    g_old = time_ms(template_scan(z, zpat,
+                                  ps.pattern_scan_rowgroup(z, zpat, 16)))
+    worst = worst_case(
+        "pattern_scan_rowgroup", lambda xw, p: (
+            lambda: ps.pattern_scan_rowgroup(xw, p, 16),
+            lambda: ps.pattern_scan_rowgroup_plain(xw, p, 16)),
+        int(lens.size), gwidth, PAD, err)
     log(f"[kernels] pattern_scan_rowgroup at the store's shape "
         f"({lens.size} x {gwidth + PAD}, P=16): {gms:.4g} ms (read flush "
-        f"{gms_read:.4g}), the shared template on the same bytes "
+        f"{gms_read:.4g}), the template on the same bytes "
         f"{g_old:.4g} ms, bound {b_grp:.4g} ms; worst case {worst['ms']:.4g} "
         f"ms (template {worst['template_ms']:.4g} ms)")
     floor = floor_numbers({
+        "pattern_scan": scan_cost(rows, width, 16)[0],
         "digest_sig": digest_cost(drows, dwidth, kblock, 4)[0],
         "pattern_scan_rowgroup": rowgroup_cost(lens.size, gwidth, 16)[0]})
     # the gateway's multi-pattern scan at its dominant bucket: mixed
@@ -1797,6 +1993,28 @@ def kernel_line(results: dict, store: ColumnStore) -> dict:
     mplain = time_ms(lambda: ps.pattern_scan_multi_plain(mx, mp, mn, mlen),
                      20)
     b_mul, by_mul = bound(*multi_cost(mrows, mwidth, 16, mn.cpu().numpy()))
+    m_worst = worst_case("pattern_scan_batch_multi", same_pattern_multi,
+                         mrows, mwidth, 16, err)
+    # lens[r] < max_len on most rows: the per-row loop bound
+    mshort = short_lens(mn)
+    agree("pattern_scan_batch_multi",
+          lambda: ps.pattern_scan_batch_multi(mx, mp, mshort, 16),
+          lambda: ps.pattern_scan_multi_plain(mx, mp, mshort, 16))
+    m_short = {
+        "ms": time_ms(lambda: ps.pattern_scan_batch_multi(mx, mp, mshort,
+                                                          16)),
+        "bound_ms": bound(*multi_cost(mrows, mwidth, 16,
+                                      np.clip(mshort.cpu().numpy(), 1,
+                                              16)))[0],
+        "lens": "three rows in four at most 2, rows 1-3 0, -3, 40; "
+                "max_len 16"}
+    m_grouped = grouped_scan_call("pattern_scan_batch_multi",
+                                  results.pop("gateway_chunk"), err)
+    log(f"[kernels] pattern_scan_batch_multi at its dominant shape ({mrows} "
+        f"x {mwidth + 16}, P=1..16): {mms:.4g} ms, bound {b_mul:.4g} ms; "
+        f"worst case {m_worst['ms']:.4g} ms (template "
+        f"{m_worst['template_ms']:.4g} ms); lens[r] < max_len on most rows "
+        f"{m_short['ms']:.4g} ms")
     # the row-group twin on phase 10's row-group: phase 8's patterns in turn
     g, grows, _ = results["rowgroup_multi_group"]
     engine = QueryEngine.from_store(store, device="cuda")
@@ -1845,7 +2063,11 @@ def kernel_line(results: dict, store: ColumnStore) -> dict:
          "max_abs_err": err["pattern_scan"],
          "ms": ms, "plain_ms": plain, "bound_ms": b_scan,
          "bound_by": by_scan, "library_ms": None,
-         "shape": [rows, width + 16], "pattern_len": 16},
+         "shape": [rows, width + 16], "pattern_len": 16,
+         "ms_read_flush": ms_read, "template_ms": s_old,
+         "worst_case": s_worst, "grouped": s_grouped,
+         "kernel_path_calls": results["serve"]["kernel_path_batches"],
+         "width_buckets": results["serve"]["width_buckets"]},
         {"name": "digest_sig", "route": "cuda",
          "source": "src/repro_torch/kernels/digest_sig/csrc/digest_sig.cu",
          "replaces": "src/repro/kernels/digest_sig/digest_sig.py:84",
@@ -1878,7 +2100,12 @@ def kernel_line(results: dict, store: ColumnStore) -> dict:
          "max_abs_err": err["pattern_scan_batch_multi"],
          "ms": mms, "plain_ms": mplain, "bound_ms": b_mul,
          "bound_by": by_mul, "library_ms": None,
-         "shape": [mrows, mwidth + 16], "pattern_lens": "1..16"},
+         "shape": [mrows, mwidth + 16], "pattern_lens": "1..16",
+         "worst_case": m_worst, "short_lens": m_short,
+         "grouped": m_grouped,
+         "kernel_dispatch_spans":
+             results["gateway"]["kernel_dispatch_spans"],
+         "width_buckets": results["gateway"]["metrics"]["kernel_dispatches"]},
         {"name": "pattern_scan_rowgroup_multi", "route": "cuda",
          "source": "src/repro_torch/kernels/pattern_scan/csrc/pattern_scan.cu",
          "replaces": "src/repro/kernels/pattern_scan/pattern_scan.py:216",

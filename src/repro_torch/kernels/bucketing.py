@@ -97,6 +97,8 @@ def payload_width(size: int, block: int, small: int | None = SMALL_BLOCK
 
 
 def dispatch_count(sizes, block: int) -> int:
-    """Kernel dispatches a batch of these payload sizes costs: one per
-    distinct width bucket (what the batched wrappers actually issue)."""
+    """Kernel dispatches a batch of these payload sizes is accounted as:
+    one per distinct width bucket, as the reference counts them. The
+    batched wrappers sweep all of a call's buckets in one grouped launch,
+    so this counts buckets, not launches."""
     return len({bucket_width(int(s), block) for s in sizes})

@@ -28,7 +28,6 @@ with CUDA events, read after its one synchronize.
 """
 from __future__ import annotations
 
-import contextlib
 import time
 
 import numpy as np
@@ -36,6 +35,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch._device import resolve_device, to_device
+from repro_torch.kernels._clock import Clock, sync
 from repro_torch.kernels.adler32.ops import combine_partials
 from repro_torch.kernels.bucketing import (as_u8, check_rowgroup,
                                            payload_width, quantize_count)
@@ -86,42 +86,6 @@ def _host_fold(s: np.ndarray, t: np.ndarray, h: np.ndarray,
     pos = positions_from_hashes(hv, bits, k)     # (k, total) planes
     sigs = fold_positions_rows(live, np.repeat(rows, m), pos, bits)
     return digests, sigs
-
-
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
-class _Clock:
-    """Device time of a call's stages: each ``span`` is bracketed by CUDA
-    events on the card (read after the call's one synchronize, so timing
-    adds none, and host time between the spans is not counted), by the
-    host clock on the CPU, where every stage runs synchronously."""
-
-    def __init__(self, dev: torch.device) -> None:
-        self.cuda = dev.type == "cuda"
-        self.marks: list = []
-
-    def _mark(self) -> None:
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.marks.append(ev)
-        else:
-            self.marks.append(time.perf_counter())
-
-    @contextlib.contextmanager
-    def span(self):
-        self._mark()
-        yield
-        self._mark()
-
-    def spans_us(self) -> list[int]:
-        pairs = zip(self.marks[::2], self.marks[1::2])
-        if self.cuda:
-            return [int(a.elapsed_time(b) * 1e3) for a, b in pairs]
-        return [int((b - a) * 1e6) for a, b in pairs]
 
 
 def pack_batch(bufs: list[np.ndarray], *, pin: bool = False
@@ -186,7 +150,7 @@ def digest_signature_batch(payloads, *, bits: int | None = None,
                         rows=lens.size, padded_rows=int(e["rows"]),
                         useful_bytes=int(lens.sum()))
     t1 = time.perf_counter()
-    clock = _Clock(dev)
+    clock = Clock(dev)
     x = torch.empty(staging.shape, dtype=torch.uint8, device=dev)
     out = torch.empty(words, dtype=torch.int32, device=dev)
     res = torch.empty(words, dtype=torch.int32, pin_memory=cuda)
@@ -196,7 +160,7 @@ def digest_signature_batch(payloads, *, bits: int | None = None,
         digest_sig_group(x, table, out, n=n)
     with clock.span():
         res.copy_(out, non_blocking=True)
-    _sync(dev)
+    sync(dev)
     t2 = time.perf_counter()
     views = group_views(res.numpy(), table)
     for e, idxs, lens, (s, t, h) in zip(table, members, lengths, views):
@@ -244,10 +208,10 @@ def digest_signature_rowgroup(matrix, lengths, *, bits: int | None = None,
                     padded_rows=live, useful_bytes=int(lengths.sum()))
     t0 = time.perf_counter()
     x = to_device(mat[:live], dev)
-    _sync(dev)
+    sync(dev)
     t1 = time.perf_counter()
     s, t, h = digest_sig_partials_batch(x, n=n, block=block)
-    _sync(dev)
+    sync(dev)
     t2 = time.perf_counter()
     del x  # the CPU path's tensor is a view of ``matrix``
     s, t, h = s.cpu().numpy(), t.cpu().numpy(), h.cpu().numpy()

@@ -1,21 +1,28 @@
 """Public wrappers for the pattern-scan kernel.
 
 ``find_pattern_mask`` scans one buffer; ``find_pattern_mask_batch`` packs
-a ragged batch of payloads into padded byte matrices and issues one
-launch per half-step **width bucket**: a uniform batch costs a single
-launch, and one giant outlier cannot inflate every row to its width.
-Each row is packed with a ``MAX_PATTERN`` zero tail (the kernel's
-window reach), copied to the device, scanned, and the mask copied back
-and trimmed to the row's true length. ``find_pattern_mask_rowgroup``
-scans a row-group the columnar store already packed: one launch, no
-packing. ``find_pattern_masks_multi`` and
-``find_pattern_masks_multi_rowgroup`` are the same two entry points with
-**one pattern per row** — the gateway's cross-request batching, where
-rows of different queries share a launch.
+a ragged batch of payloads into padded byte matrices, one per half-step
+**width bucket** (one giant outlier cannot inflate every row to its
+width), all in one (pinned) staging buffer beside a descriptor table;
+it copies the buffer to the device in **one** transfer, sweeps every
+bucket in **one** launch, copies the masks back in one transfer and
+synchronizes once, then trims each row's mask to its true length from
+views of the one result. Each row carries a ``MAX_PATTERN`` zero tail
+(the kernel's window reach). ``find_pattern_mask_rowgroup`` scans a
+row-group the columnar store already packed: one launch, no packing.
+``find_pattern_masks_multi`` and ``find_pattern_masks_multi_rowgroup``
+are the same two entry points with **one pattern per row** — the
+gateway's cross-request batching, where rows of different queries share
+a launch; the batch form stages each bucket's patterns and lengths
+beside its matrix.
 
-Each launch's time is split into host-to-device copy, kernel and
-device-to-host copy, published as the
-``stage.<wrapper>.{h2d,kernel,d2h}_us`` counters.
+The batch wrappers publish their time as the
+``stage.<wrapper>.{pack,h2d,kernel,d2h}_us`` counters: host packing, and
+the two copies and the kernel as device time from CUDA events, read
+after the one synchronize. The row-group wrappers split host-clock time
+into ``stage.<wrapper>.{h2d,kernel,d2h}_us``. Every width bucket is
+still accounted as one dispatch (:func:`~repro_torch.obs.kernels.
+record_dispatch`), as the reference accounts it.
 """
 from __future__ import annotations
 
@@ -26,16 +33,19 @@ import torch
 
 from repro_torch import obs
 from repro_torch._device import resolve_device, to_device
+from repro_torch.kernels._clock import Clock, sync
 from repro_torch.kernels.bucketing import (as_u8, bucket_width,
                                            check_rowgroup, quantize_count)
 from repro_torch.obs.kernels import record_dispatch
-from .pattern_scan import (DEFAULT_BLOCK, MAX_PATTERN, pattern_scan_batch,
-                           pattern_scan_batch_multi, pattern_scan_rowgroup,
+from .pattern_scan import (DEFAULT_BLOCK, MAX_PATTERN, group_layout,
+                           group_views, pattern_scan_group,
+                           pattern_scan_multi_group, pattern_scan_rowgroup,
                            pattern_scan_rowgroup_multi)
 
 __all__ = ["count_matches", "find_pattern_mask", "find_pattern_mask_batch",
            "find_pattern_mask_rowgroup", "find_pattern_masks_multi",
-           "find_pattern_masks_multi_rowgroup", "find_pattern_positions"]
+           "find_pattern_masks_multi_rowgroup", "find_pattern_positions",
+           "pack_scan"]
 
 # pattern of the pad rows that round a multi-pattern batch up to its
 # quantized row count: it never matches an all-zero pad row
@@ -56,14 +66,6 @@ def _check_pattern(pattern) -> tuple[np.ndarray, int]:
     return pad_vec, int(pat.size)
 
 
-def _pack(bufs: list[np.ndarray], width: int) -> np.ndarray:
-    """Stack ragged buffers into ``(B, width + MAX_PATTERN)``, zero tail."""
-    out = np.zeros((len(bufs), width + MAX_PATTERN), dtype=np.uint8)
-    for i, buf in enumerate(bufs):
-        out[i, :buf.size] = buf
-    return out
-
-
 def _trim(mask_row: np.ndarray, n: int, plen: int) -> np.ndarray:
     out = np.array(mask_row[:n])  # own the buffer
     # matches that would read past the true end are padding artifacts
@@ -74,54 +76,114 @@ def _trim(mask_row: np.ndarray, n: int, plen: int) -> np.ndarray:
     return out
 
 
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+def _check_block(block: int) -> None:
+    if block <= 0 or block % 16:
+        raise ValueError(f"block must be a positive multiple of 16, "
+                         f"got {block}")
+
+
+def pack_scan(bufs: list[np.ndarray], block: int, *,
+              patterns: list[np.ndarray] | None = None,
+              plens: list[int] | None = None, pin: bool = False
+              ) -> tuple[torch.Tensor, np.ndarray, int, list[list[int]]]:
+    """Pack a ragged batch into one group: each half-step width bucket of
+    ``block`` granularity a ``(quantized rows, width + MAX_PATTERN)``
+    zero-padded matrix at its table offset of one staging buffer
+    (page-locked when ``pin``). With ``patterns`` (zero-padded
+    ``(MAX_PATTERN,)`` vectors, one per buffer) and ``plens``, each
+    bucket's patterns and int32 lengths follow its matrix, pad rows
+    taking the inert pattern ``[1, 0, ...]`` of length 1, and its
+    ``max_len`` is its longest length.
+
+    Returns ``(staging, table, mask_bytes, members)``: the 1-D uint8
+    buffer, its :data:`~repro_torch.kernels.pattern_scan.pattern_scan.
+    GROUP_DTYPE` table, the size of the group's mask buffer and, per
+    entry, the indices of ``bufs`` in its rows.
+    """
+    buckets: dict[int, list[int]] = {}
+    for i, buf in enumerate(bufs):
+        buckets.setdefault(bucket_width(buf.size, block), []).append(i)
+    members = list(buckets.values())
+    multi = patterns is not None
+    table, in_bytes, mask_bytes = group_layout(
+        [(quantize_count(len(idxs)), width,
+          max(plens[i] for i in idxs) if multi else 1)
+         for width, idxs in buckets.items()], multi=multi)
+    staging = torch.empty(in_bytes, dtype=torch.uint8, pin_memory=pin)
+    flat = staging.numpy()
+    flat[:] = 0
+    for e, idxs in zip(table, members):
+        off, rows, width = int(e["in_off"]), int(e["rows"]), int(e["width"])
+        mat = flat[off:off + rows * (width + MAX_PATTERN)].reshape(rows, -1)
+        for row, i in enumerate(idxs):
+            mat[row, :bufs[i].size] = bufs[i]
+        if multi:
+            off = int(e["pat_off"])
+            pats = flat[off:off + rows * MAX_PATTERN].reshape(rows, -1)
+            pats[:len(idxs)] = [patterns[i] for i in idxs]
+            pats[len(idxs):] = _INERT_PATTERN
+            off = int(e["len_off"])
+            lens = flat[off:off + 4 * rows].view(np.int32)
+            lens[:len(idxs)] = [plens[i] for i in idxs]
+            lens[len(idxs):] = 1
+    return staging, table, mask_bytes, members
+
+
+def _scan_group(name: str, arrs: list[np.ndarray], dev: torch.device,
+                block: int, scan, **packing
+                ) -> list[tuple[list[int], np.ndarray]]:
+    """Pack ``arrs`` into one group, run ``scan(x, table, out)`` on
+    ``dev`` between one copy each way, synchronize once, and return each
+    bucket's masks (views of the one result), in ``pack_scan``'s member
+    order beside the members. Accounts each bucket as one dispatch of
+    ``name`` and the stage split in ``stage.<name>.*``."""
+    cuda = dev.type == "cuda"
+    t0 = time.perf_counter()
+    staging, table, mask_bytes, members = pack_scan(arrs, block, pin=cuda,
+                                                    **packing)
+    for e, idxs in zip(table, members):
+        record_dispatch(name, width=int(e["width"]), rows=len(idxs),
+                        padded_rows=int(e["rows"]),
+                        useful_bytes=sum(arrs[i].size for i in idxs))
+    t1 = time.perf_counter()
+    clock = Clock(dev)
+    x = torch.empty(staging.shape, dtype=torch.uint8, device=dev)
+    out = torch.empty(mask_bytes, dtype=torch.uint8, device=dev)
+    res = torch.empty(mask_bytes, dtype=torch.uint8, pin_memory=cuda)
+    with clock.span():
+        x.copy_(staging, non_blocking=True)
+    with clock.span():
+        scan(x, table, out)
+    with clock.span():
+        res.copy_(out, non_blocking=True)
+    sync(dev)
+    h2d, kernel, d2h = clock.spans_us()
+    obs.registry().fold_counters({"pack_us": int((t1 - t0) * 1e6),
+                                  "h2d_us": h2d, "kernel_us": kernel,
+                                  "d2h_us": d2h}, prefix=f"stage.{name}.")
+    return list(zip(members, group_views(res.numpy(), table)))
 
 
 def find_pattern_mask_batch(bufs, pattern, *, block: int = DEFAULT_BLOCK,
                             device="cuda") -> list[np.ndarray]:
-    """uint8 match masks for a ragged batch — few kernel launches.
+    """uint8 match masks for a ragged batch — one kernel launch.
 
     Returns one mask per input, each the same length as its buffer.
     Inputs are grouped into half-step width buckets of ``block``-byte
-    granularity (``block`` must be a multiple of 16) — one launch per
-    bucket, rows padded to a quantized count.
+    granularity (``block`` must be a multiple of 16), rows padded to a
+    quantized count; one launch sweeps every bucket.
     """
     pat_vec, plen = _check_pattern(pattern)
-    if block <= 0 or block % 16:
-        raise ValueError(f"block must be a positive multiple of 16, "
-                         f"got {block}")
+    _check_block(block)
     dev = resolve_device(device)
     arrs = [as_u8(b) for b in bufs]
     if not arrs:
         return []
     out: list = [None] * len(arrs)
-    buckets: dict[int, list[int]] = {}
-    for i, arr in enumerate(arrs):
-        buckets.setdefault(bucket_width(arr.size, block), []).append(i)
-    empty = np.empty(0, np.uint8)
-    reg = obs.registry()
-    for width, idxs in buckets.items():
-        rows = [arrs[i] for i in idxs]
-        rows += [empty] * (quantize_count(len(rows)) - len(rows))
-        padded = _pack(rows, width)
-        record_dispatch("find_pattern_mask_batch", width=width,
-                        rows=len(idxs), padded_rows=len(rows),
-                        useful_bytes=sum(arrs[i].size for i in idxs))
-        t0 = time.perf_counter()
-        x = torch.from_numpy(padded).to(dev)
-        _sync(dev)
-        t1 = time.perf_counter()
-        masks = pattern_scan_batch(x, pat_vec, plen)
-        _sync(dev)
-        t2 = time.perf_counter()
-        masks = masks.cpu().numpy()
-        t3 = time.perf_counter()
-        reg.fold_counters({"h2d_us": int((t1 - t0) * 1e6),
-                           "kernel_us": int((t2 - t1) * 1e6),
-                           "d2h_us": int((t3 - t2) * 1e6)},
-                          prefix="stage.find_pattern_mask_batch.")
+    for idxs, masks in _scan_group(
+            "find_pattern_mask_batch", arrs, dev, block,
+            lambda x, table, m: pattern_scan_group(x, table, m, pat_vec,
+                                                   plen)):
         for row, i in enumerate(idxs):
             out[i] = _trim(masks[row], arrs[i].size, plen)
     return out
@@ -136,10 +198,10 @@ def _scan_multi(scan, mat: np.ndarray, pat_mat: np.ndarray,
     x = to_device(mat, dev)
     p = torch.from_numpy(pat_mat).to(dev)
     n = torch.from_numpy(lens).to(dev)
-    _sync(dev)
+    sync(dev)
     t1 = time.perf_counter()
     masks = scan(x, p, n, max_len)
-    _sync(dev)
+    sync(dev)
     t2 = time.perf_counter()
     del x  # the CPU path's tensor may be a view of the caller's matrix
     masks = masks.cpu().numpy()
@@ -156,9 +218,9 @@ def find_pattern_masks_multi(bufs, patterns, *, block: int = DEFAULT_BLOCK,
     """Match masks for a ragged batch where **each row has its own
     pattern** — the cross-request batching entry point.
 
-    ``patterns[i]`` scans ``bufs[i]``; rows from different queries that
-    land in the same width bucket share one launch (the compare loop
-    runs to the bucket's longest pattern). Same bucketing and trim as
+    ``patterns[i]`` scans ``bufs[i]``; rows from different queries share
+    the launch (each bucket's compare loop runs to its longest pattern,
+    each row's to its own). Same bucketing and trim as
     :func:`find_pattern_mask_batch`, so for equal patterns the two give
     equal masks. Pad rows (all zero, the inert pattern ``[1, 0, ...]`` of
     length 1) round each bucket up to its quantized row count; their
@@ -166,9 +228,7 @@ def find_pattern_masks_multi(bufs, patterns, *, block: int = DEFAULT_BLOCK,
     """
     if len(bufs) != len(patterns):
         raise ValueError("bufs and patterns must pair up")
-    if block <= 0 or block % 16:
-        raise ValueError(f"block must be a positive multiple of 16, "
-                         f"got {block}")
+    _check_block(block)
     dev = resolve_device(device)
     arrs = [as_u8(b) for b in bufs]
     pats: list[np.ndarray] = []
@@ -180,24 +240,9 @@ def find_pattern_masks_multi(bufs, patterns, *, block: int = DEFAULT_BLOCK,
     if not arrs:
         return []
     out: list = [None] * len(arrs)
-    buckets: dict[int, list[int]] = {}
-    for i, arr in enumerate(arrs):
-        buckets.setdefault(bucket_width(arr.size, block), []).append(i)
-    empty = np.empty(0, np.uint8)
-    for width, idxs in buckets.items():
-        rows = [arrs[i] for i in idxs]
-        n_pad = quantize_count(len(rows)) - len(rows)
-        rows += [empty] * n_pad
-        padded = _pack(rows, width)
-        pat_mat = np.stack([pats[i] for i in idxs]
-                           + [_INERT_PATTERN] * n_pad)
-        lens = np.asarray([plens[i] for i in idxs] + [1] * n_pad, np.int32)
-        record_dispatch("find_pattern_masks_multi", width=width,
-                        rows=len(idxs), padded_rows=len(rows),
-                        useful_bytes=sum(arrs[i].size for i in idxs))
-        masks = _scan_multi(pattern_scan_batch_multi, padded, pat_mat, lens,
-                            max(plens[i] for i in idxs), dev,
-                            "find_pattern_masks_multi")
+    for idxs, masks in _scan_group("find_pattern_masks_multi", arrs, dev,
+                                   block, pattern_scan_multi_group,
+                                   patterns=pats, plens=plens):
         for row, i in enumerate(idxs):
             out[i] = _trim(masks[row], arrs[i].size, plens[i])
     return out
@@ -241,10 +286,10 @@ def find_pattern_mask_rowgroup(matrix, lengths, pattern, *, trim: bool = True,
                     padded_rows=live, useful_bytes=int(lengths.sum()))
     t0 = time.perf_counter()
     x = to_device(mat[:live], dev)
-    _sync(dev)
+    sync(dev)
     t1 = time.perf_counter()
     masks = pattern_scan_rowgroup(x, pat_vec, plen)
-    _sync(dev)
+    sync(dev)
     t2 = time.perf_counter()
     del x  # the CPU path's tensor is a view of ``matrix``
     masks = masks.cpu().numpy()
