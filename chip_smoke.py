@@ -23,7 +23,8 @@ plain PyTorch version:
    pad rows, ``adler32_partials_batch`` with all-0xFF and empty rows;
    ``digest_sig``'s general body at n = 24 and 129 and block 4096;
    ``pattern_scan_rowgroup`` where its early exit never fires;
-   ``pattern_scan_batch_multi`` with ``lens[r] < max_len`` on most rows);
+   ``pattern_scan_batch_multi`` and ``pattern_scan_rowgroup_multi`` with
+   ``lens[r] < max_len`` on most rows and lengths outside [1, 16]);
 5. main path: ``build_index(device="cuda")``; every digest against
    ``zlib.adler32``, a seeded sample of signatures against
    ``signature_of``, and a ``save``/``load`` round trip;
@@ -74,10 +75,10 @@ phase 6's scan batch with the most buckets, ``pattern_scan_batch_multi``
 over phase 10's chunk with the most buckets), each early-exit scan where
 its early exit never fires (``pattern_scan_rowgroup`` at the store's
 shape, ``pattern_scan_batch`` and ``pattern_scan_batch_multi`` at their
-dominant shapes; each beside the old shared template, which only
-``pattern_scan_rowgroup_multi`` runs now, with the same pattern on every
-row over the same bytes), ``pattern_scan_batch_multi`` with ``lens[r] <
-max_len`` on most rows, and the floor under small launches: an empty
+dominant shapes, ``pattern_scan_rowgroup_multi`` at phase 10's
+row-group's), ``pattern_scan_batch_multi`` and
+``pattern_scan_rowgroup_multi`` with ``lens[r] < max_len`` on most rows,
+and the floor under small launches: an empty
 kernel (``kernels/empty/csrc/empty.cu``) and ``torch.Tensor.copy_`` of
 #1's, #2's and #3's byte counts, under the same timing; the
 read-flushed times are extra numbers.
@@ -645,8 +646,8 @@ def multi_checks(results: dict) -> None:
                (6, 5, 65536))),
              ("pattern_scan_rowgroup_multi", ps.pattern_scan_rowgroup_multi,
               ps.pattern_scan_rowgroup_multi_plain, PAD,
-              ((1, 1, 256), (3, 2, 1536), (1024, 1000, 2048),
-               (675, 675, 12288))))
+              ((1, 1, 256), (3, 2, 1536), (1, 1, 12288), (2048, 2000, 256),
+               (1024, 1000, 2048), (675, 675, 12288))))
     for name, kernel, plain, tail, shapes in cases:
         for rows, live, width in shapes:
             x, p, n, max_len = multi_inputs(rng, rows, width, tail, live)
@@ -659,14 +660,13 @@ def multi_checks(results: dict) -> None:
                 raise RuntimeError(
                     f"{name} B={rows} live={live} W={width}: max |kernel - "
                     f"plain| = {d}, plain matches {int(want.sum())}")
-            if kernel is ps.pattern_scan_batch_multi:
-                # the per-row loop bound: lens[r] < max_len on most rows,
-                # and lengths outside [1, max_len]
-                short = short_lens(n)
-                if not torch.equal(kernel(x, p, short, 16),
-                                   plain(x, p, short, 16)):
-                    raise RuntimeError(f"{name} B={rows} W={width}: card != "
-                                       f"plain with lens[r] < max_len")
+            # the per-row loop bound: lens[r] < max_len on most rows, and
+            # lengths outside [1, max_len]
+            short = short_lens(n)
+            if not torch.equal(kernel(x, p, short, 16),
+                               plain(x, p, short, 16)):
+                raise RuntimeError(f"{name} B={rows} W={width}: card != "
+                                   f"plain with lens[r] < max_len")
         ms = time_ms(lambda: kernel(x, p, n, max_len))
         pms = time_ms(lambda: plain(x, p, n, max_len), 20)
         b, _ = bound(*multi_cost(rows, width, tail, n.cpu().numpy()))
@@ -1785,38 +1785,40 @@ def grouped_flush(results: dict, err: dict) -> dict:
             "bytes": nbytes, "buckets": shapes, "max_abs_err": d}
 
 
-def template_scan(z: torch.Tensor, pat: np.ndarray, want: torch.Tensor):
-    """``z``'s bytes (rows of W + tail) relaid at W + 128 and scanned by
-    ``pattern_scan_rowgroup_multi`` with ``pat`` (16 bytes) on every row:
-    the old shared template, which only #5 runs now, doing the same work
-    on the same bytes. Held against ``want``, the mask of the kernel it
-    is timed beside."""
-    rows, width = want.shape
-    z128 = torch.zeros((rows, width + PAD), dtype=torch.uint8, device="cuda")
-    z128[:, :width] = z[:, :width]
-    pats = torch.from_numpy(np.tile(pat, (rows, 1))).cuda()
-    lens = torch.full((rows,), 16, dtype=torch.int32, device="cuda")
-    if not torch.equal(ps.pattern_scan_rowgroup_multi(z128, pats, lens, 16),
-                       want):
-        raise RuntimeError("the template != the kernel on the same bytes")
-    return lambda: ps.pattern_scan_rowgroup_multi(z128, pats, lens, 16)
+def same_pattern(kernel, plain):
+    """``make`` for :func:`worst_case`: the per-row-pattern scan ``kernel``
+    and its plain version over ``x`` with the 16-byte ``p`` on every row,
+    their tensors made once on the card."""
+    def make(x: torch.Tensor, p: np.ndarray):
+        pt = torch.from_numpy(np.tile(p, (x.shape[0], 1))).cuda()
+        nt = torch.full((x.shape[0],), 16, dtype=torch.int32, device="cuda")
+        return (lambda: kernel(x, pt, nt, 16), lambda: plain(x, pt, nt, 16))
+    return make
 
 
-def same_pattern_multi(x: torch.Tensor, p: np.ndarray):
-    """pattern_scan_batch_multi and its plain version over ``x`` with the
-    16-byte ``p`` on every row, its tensors made once on the card."""
-    pt = torch.from_numpy(np.tile(p, (x.shape[0], 1))).cuda()
-    nt = torch.full((x.shape[0],), 16, dtype=torch.int32, device="cuda")
-    return (lambda: ps.pattern_scan_batch_multi(x, pt, nt, 16),
-            lambda: ps.pattern_scan_multi_plain(x, pt, nt, 16))
+def short_case(name: str, kernel, plain, x: torch.Tensor, p: torch.Tensor,
+               n: torch.Tensor, tail: int, err: dict) -> dict:
+    """A per-row-pattern scan with ``short_lens(n)`` and max_len 16 (its
+    loop stops at each row's own length): held against its plain version
+    and timed, with the bound of the lengths it compares."""
+    short = short_lens(n)
+    err[name] = max(err[name], timed_err(
+        f"{name} with lens[r] < max_len", lambda: kernel(x, p, short, 16),
+        lambda: plain(x, p, short, 16)))
+    return {"ms": time_ms(lambda: kernel(x, p, short, 16)),
+            "bound_ms": bound(*multi_cost(
+                x.shape[0], x.shape[1] - tail, tail,
+                np.clip(short.cpu().numpy(), 1, 16)))[0],
+            "lens": "three rows in four at most 2, rows 1-3 0, -3, 40; "
+                    "max_len 16"}
 
 
 def worst_case(name: str, make, rows: int, width: int, tail: int,
                err: dict) -> dict:
     """An early-exit scan at (rows, W + tail) on the inputs where its early
     exit never fires: ``make(x, p)`` gives the kernel's call and its plain
-    version's, held against each other and timed beside the template on
-    the same bytes; ``ms`` is the slower input's."""
+    version's, held against each other and timed; ``ms`` is the slower
+    input's."""
     out = {}
     for label, (m, p) in zip(("a x 16", "pattern repeated"),
                              worst_case_inputs(rows, width, tail)):
@@ -1824,10 +1826,8 @@ def worst_case(name: str, make, rows: int, width: int, tail: int,
         run, plain = make(x, p)
         err[name] = max(err[name], timed_err(f"{name} worst case", run,
                                              plain))
-        out[label] = {"ms": time_ms(run),
-                      "template_ms": time_ms(template_scan(x, p, run()))}
-    slow = max(out.values(), key=lambda c: c["ms"])
-    return {"ms": slow["ms"], "template_ms": slow["template_ms"],
+        out[label] = {"ms": time_ms(run)}
+    return {"ms": max(c["ms"] for c in out.values()),
             "shape": [rows, width + tail], "cases": out}
 
 
@@ -1923,7 +1923,6 @@ def kernel_line(results: dict, store: ColumnStore) -> dict:
     ms_read = time_ms_read_flush(lambda: ps.pattern_scan_batch(x, pat, 16))
     plain = time_ms(lambda: ps.pattern_scan_plain(x, pat, 16), 20)
     b_scan, by_scan = bound(*scan_cost(rows, width, 16))
-    s_old = time_ms(template_scan(x, pat, ps.pattern_scan_batch(x, pat, 16)))
     s_worst = worst_case(
         "pattern_scan", lambda xw, p: (
             lambda: ps.pattern_scan_batch(xw, p, 16),
@@ -1932,10 +1931,8 @@ def kernel_line(results: dict, store: ColumnStore) -> dict:
     s_grouped = grouped_scan_call("pattern_scan", results.pop("scan_call"),
                                   err)
     log(f"[kernels] pattern_scan at its dominant shape ({rows} x "
-        f"{width + 16}, P=16): {ms:.4g} ms (read flush {ms_read:.4g}), the "
-        f"template on the same bytes {s_old:.4g} ms, bound {b_scan:.4g} ms; "
-        f"worst case {s_worst['ms']:.4g} ms (template "
-        f"{s_worst['template_ms']:.4g} ms)")
+        f"{width + 16}, P=16): {ms:.4g} ms (read flush {ms_read:.4g}), "
+        f"bound {b_scan:.4g} ms; worst case {s_worst['ms']:.4g} ms")
     drows, dwidth = results["digest_sig_shape"]
     kblock = min(ds.BLOCK, dwidth)
     y = digest_inputs(rng, drows, dwidth)
@@ -1965,8 +1962,6 @@ def kernel_line(results: dict, store: ColumnStore) -> dict:
         lambda: ps.pattern_scan_rowgroup(z, zpat, 16))
     gplain = time_ms(lambda: ps.pattern_scan_rowgroup_plain(z, zpat, 16), 20)
     b_grp, by_grp = bound(*rowgroup_cost(lens.size, gwidth, 16))
-    g_old = time_ms(template_scan(z, zpat,
-                                  ps.pattern_scan_rowgroup(z, zpat, 16)))
     worst = worst_case(
         "pattern_scan_rowgroup", lambda xw, p: (
             lambda: ps.pattern_scan_rowgroup(xw, p, 16),
@@ -1974,9 +1969,8 @@ def kernel_line(results: dict, store: ColumnStore) -> dict:
         int(lens.size), gwidth, PAD, err)
     log(f"[kernels] pattern_scan_rowgroup at the store's shape "
         f"({lens.size} x {gwidth + PAD}, P=16): {gms:.4g} ms (read flush "
-        f"{gms_read:.4g}), the template on the same bytes "
-        f"{g_old:.4g} ms, bound {b_grp:.4g} ms; worst case {worst['ms']:.4g} "
-        f"ms (template {worst['template_ms']:.4g} ms)")
+        f"{gms_read:.4g}), bound {b_grp:.4g} ms; worst case "
+        f"{worst['ms']:.4g} ms")
     floor = floor_numbers({
         "pattern_scan": scan_cost(rows, width, 16)[0],
         "digest_sig": digest_cost(drows, dwidth, kblock, 4)[0],
@@ -1993,27 +1987,17 @@ def kernel_line(results: dict, store: ColumnStore) -> dict:
     mplain = time_ms(lambda: ps.pattern_scan_multi_plain(mx, mp, mn, mlen),
                      20)
     b_mul, by_mul = bound(*multi_cost(mrows, mwidth, 16, mn.cpu().numpy()))
-    m_worst = worst_case("pattern_scan_batch_multi", same_pattern_multi,
-                         mrows, mwidth, 16, err)
-    # lens[r] < max_len on most rows: the per-row loop bound
-    mshort = short_lens(mn)
-    agree("pattern_scan_batch_multi",
-          lambda: ps.pattern_scan_batch_multi(mx, mp, mshort, 16),
-          lambda: ps.pattern_scan_multi_plain(mx, mp, mshort, 16))
-    m_short = {
-        "ms": time_ms(lambda: ps.pattern_scan_batch_multi(mx, mp, mshort,
-                                                          16)),
-        "bound_ms": bound(*multi_cost(mrows, mwidth, 16,
-                                      np.clip(mshort.cpu().numpy(), 1,
-                                              16)))[0],
-        "lens": "three rows in four at most 2, rows 1-3 0, -3, 40; "
-                "max_len 16"}
+    m_worst = worst_case("pattern_scan_batch_multi", same_pattern(
+        ps.pattern_scan_batch_multi, ps.pattern_scan_multi_plain),
+        mrows, mwidth, 16, err)
+    m_short = short_case("pattern_scan_batch_multi",
+                         ps.pattern_scan_batch_multi,
+                         ps.pattern_scan_multi_plain, mx, mp, mn, 16, err)
     m_grouped = grouped_scan_call("pattern_scan_batch_multi",
                                   results.pop("gateway_chunk"), err)
     log(f"[kernels] pattern_scan_batch_multi at its dominant shape ({mrows} "
         f"x {mwidth + 16}, P=1..16): {mms:.4g} ms, bound {b_mul:.4g} ms; "
-        f"worst case {m_worst['ms']:.4g} ms (template "
-        f"{m_worst['template_ms']:.4g} ms); lens[r] < max_len on most rows "
+        f"worst case {m_worst['ms']:.4g} ms; lens[r] < max_len on most rows "
         f"{m_short['ms']:.4g} ms")
     # the row-group twin on phase 10's row-group: phase 8's patterns in turn
     g, grows, _ = results["rowgroup_multi_group"]
@@ -2044,6 +2028,18 @@ def kernel_line(results: dict, store: ColumnStore) -> dict:
     rplain = time_ms(lambda: ps.pattern_scan_rowgroup_multi_plain(
         gx, gp_t, gn_t, glen), 20)
     b_rmul, by_rmul = bound(*multi_cost(grows, gwidth, PAD, gn))
+    r_worst = worst_case("pattern_scan_rowgroup_multi", same_pattern(
+        ps.pattern_scan_rowgroup_multi, ps.pattern_scan_rowgroup_multi_plain),
+        grows, gwidth, PAD, err)
+    r_short = short_case("pattern_scan_rowgroup_multi",
+                         ps.pattern_scan_rowgroup_multi,
+                         ps.pattern_scan_rowgroup_multi_plain, gx, gp_t, gn_t,
+                         PAD, err)
+    log(f"[kernels] pattern_scan_rowgroup_multi on phase 10's row-group "
+        f"({grows} x {gwidth + PAD}, {len(pats)} patterns): {rms:.4g} ms, "
+        f"bound {b_rmul:.4g} ms, plain {rplain:.4g} ms; worst case "
+        f"{r_worst['ms']:.4g} ms; lens[r] < max_len on most rows "
+        f"{r_short['ms']:.4g} ms")
     # adler32 at verify's dominant width bucket
     arows, awidth = results["adler32_shape"]
     ax = adler_inputs(rng, arows, awidth)
@@ -2064,7 +2060,7 @@ def kernel_line(results: dict, store: ColumnStore) -> dict:
          "ms": ms, "plain_ms": plain, "bound_ms": b_scan,
          "bound_by": by_scan, "library_ms": None,
          "shape": [rows, width + 16], "pattern_len": 16,
-         "ms_read_flush": ms_read, "template_ms": s_old,
+         "ms_read_flush": ms_read,
          "worst_case": s_worst, "grouped": s_grouped,
          "kernel_path_calls": results["serve"]["kernel_path_batches"],
          "width_buckets": results["serve"]["width_buckets"]},
@@ -2091,7 +2087,7 @@ def kernel_line(results: dict, store: ColumnStore) -> dict:
          "ms": gms, "plain_ms": gplain, "bound_ms": b_grp,
          "bound_by": by_grp, "library_ms": None,
          "shape": [int(lens.size), gwidth + PAD], "pattern_len": 16,
-         "ms_read_flush": gms_read, "template_ms": g_old,
+         "ms_read_flush": gms_read,
          "worst_case": worst},
         {"name": "pattern_scan_batch_multi", "route": "cuda",
          "source": "src/repro_torch/kernels/pattern_scan/csrc/pattern_scan.cu",
@@ -2114,7 +2110,8 @@ def kernel_line(results: dict, store: ColumnStore) -> dict:
          "ms": rms, "plain_ms": rplain, "bound_ms": b_rmul,
          "bound_by": by_rmul, "library_ms": None,
          "shape": [grows, gwidth + PAD],
-         "pattern_lens": sorted({len(p) for p in pats})},
+         "pattern_lens": sorted({len(p) for p in pats}),
+         "worst_case": r_worst, "short_lens": r_short},
         {"name": "adler32", "route": "cuda",
          "source": "src/repro_torch/kernels/adler32/csrc/adler32.cu",
          "replaces": "src/repro/kernels/adler32/adler32.py:51",
@@ -2204,7 +2201,7 @@ def main() -> int:
                     results["verify_digest_sig_launches"],
                 "pattern_scan_batch_multi (gateway)":
                     results["multi_launches"],
-                "pattern_scan_rowgroup_multi (gateway, row-group)":
+                "pattern_scan_rowgroup_multi (row-group check)":
                     results["rowgroup_multi_launches"],
                 "flash_attention (LM prefill)":
                     results["lm"]["flash_launches"]["prefill"],

@@ -12,12 +12,12 @@
 //                               rows of W + 128 bytes, one pattern per row.
 //   mask[r, i] = AND_{j < P_r} buf[r, i + j] == p_r[j],  1 <= P_r <= 16.
 //
-// Which entry runs which body:
+// Which entry runs which body (every one the candidate filter below):
 //   pattern_scan_group, pattern_scan_multi_group (the batch forms, #1 and
 //     #4, as grouped launches) -> pattern_scan_group_kernel<kMulti>;
 //   pattern_scan_rowgroup (#3) -> pattern_scan_rowgroup_kernel;
-//   pattern_scan_rowgroup_multi (#5) -> pattern_scan_kernel, the old shared
-//     template, which no other entry runs now.
+//   pattern_scan_rowgroup_multi (#5) -> pattern_scan_rowgroup_multi_kernel,
+//     #3's grid over the group body's row loop.
 //
 // Bound on the H100: bytes moved. Per row a kernel reads its W + tail
 // input bytes (plus 20 bytes of pattern and length in the multi forms) and
@@ -29,9 +29,9 @@
 // row stride is W + 16 for batches, W + 128 for row-groups), so every
 // window starting in the row is in bounds.
 //
-// The candidate filter (the batch group body and the row-group body): a
-// thread takes 16-byte chunks of one row, loading kAhead of them before it
-// compares any, and for each chunk compares pattern byte 0 at the chunk's
+// The candidate filter, which every entry runs: a thread takes 16-byte
+// chunks of one row, loading kAhead of them before it compares any, and
+// for each chunk compares pattern byte 0 at the chunk's
 // 16 positions, going on to byte j + 1 only while some position is still
 // alive; on crawl text most chunks die after one or two bytes. The byte
 // compare is the exact SWAR zero-byte test on x = window ^ (p_j *
@@ -39,14 +39,11 @@
 // where a byte of x is non-zero (no carry crosses a byte), so acc &= ~that
 // keeps bit 7 of each byte alive while the window matches: one funnel
 // shift, three LOP3 and one IADD3 per 4 positions and pattern byte. No
-// integer division runs in any chunk loop.
+// chunk loop compares with __vcmpeq4 (which sm_90 lowers to PRMT/LOP3) or
+// runs an integer division.
 //
-// The batch forms (#1, #4) had two costs: the template's body (below: a
-// __vcmpeq4 per 4 positions and pattern byte, which sm_90 lowers to
-// PRMT/LOP3, no early exit, and a 64-bit division per chunk), and one
-// launch per width bucket, each with its own copies and synchronizes. Their
-// group body takes the filter above, and one launch sweeps every width
-// bucket of a wrapper call: the buckets are packed at 16-byte-aligned
+// The batch forms (#1, #4): one launch of their group body sweeps every
+// width bucket of a wrapper call: the buckets are packed at 16-byte-aligned
 // offsets of one buffer, and a descriptor table (Desc, at most kMaxGroup
 // entries, by value as a __grid_constant__ parameter) gives each its
 // offsets, rows and width. The launcher adds each entry's block geometry:
@@ -58,13 +55,14 @@
 // card. A block finds its entry by a scan of the entries' first blocks.
 //
 // The multi forms read the row's 16-byte pattern as one uint4 and its
-// length; a position j >= 1 at or past the row's own length is forced to
-// match, exactly as the Pallas kernel ORs in j >= plen (position 0 is
-// always compared, as there). So the group body's loop stops at
-// min(max_len, lens[r]) (at least 1), any length value gives the Pallas
-// result, and no length needs a device-side check. The gateway pads a
-// bucket with inert rows (all zero, pattern [1, 0, ...] of length 1): they
-// die at byte 0, and their masks are discarded.
+// length, once per row, after the row's first chunk loads are issued; a
+// position j >= 1 at or past the row's own length is forced to match,
+// exactly as the Pallas kernel ORs in j >= plen (position 0 is always
+// compared, as there). So the loop stops at min(max_len, lens[r]) (at
+// least 1), any length value gives the Pallas result, and no length needs
+// a device-side check. The gateway pads a bucket with inert rows (all
+// zero, pattern [1, 0, ...] of length 1): they die at byte 0, and their
+// masks are discarded.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -128,6 +126,21 @@ __device__ __forceinline__ void spread(uint64_t lo, uint64_t hi,
     const uint64_t word = j < 8 ? lo : hi;
     pj[j] = static_cast<uint32_t>((word >> (8 * (j & 7))) & 0xFFu) * 0x01010101u;
   }
+}
+
+// A multi form's row: its pattern (16 bytes at pat) spread into pj and its
+// loop bound, min(*len, max_len) but at least 1 (positions past the row's
+// length are forced to match; position 0 is always compared).
+__device__ __forceinline__ void row_pattern(const uint8_t* __restrict__ pat,
+                                            const uint8_t* __restrict__ len,
+                                            int max_len, uint32_t (&pj)[16],
+                                            int& bound) {
+  const uint4 p = *reinterpret_cast<const uint4*>(pat);
+  const int n = *reinterpret_cast<const int32_t*>(len);
+  spread(static_cast<uint64_t>(p.x) | (static_cast<uint64_t>(p.y) << 32),
+         static_cast<uint64_t>(p.z) | (static_cast<uint64_t>(p.w) << 32), pj);
+  bound = n < max_len ? n : max_len;
+  if (bound < 1) bound = 1;
 }
 
 // A thread's chunks of one row of the group body: c0, c0 + stride, ...,
@@ -209,15 +222,9 @@ pattern_scan_group_kernel(const __grid_constant__ Table tab,
                bound = pat_len;
                return;
              }
-             const uint4 p = *reinterpret_cast<const uint4*>(
-                 pats + d.pat_off + 16 * static_cast<int64_t>(r));
-             const int n = *reinterpret_cast<const int32_t*>(
-                 lens + d.len_off + 4 * static_cast<int64_t>(r));
-             spread(static_cast<uint64_t>(p.x) | (static_cast<uint64_t>(p.y) << 32),
-                    static_cast<uint64_t>(p.z) | (static_cast<uint64_t>(p.w) << 32),
-                    pj);
-             bound = n < d.max_len ? n : d.max_len;  // forced to match past it
-             if (bound < 1) bound = 1;  // position 0 is always compared
+             row_pattern(pats + d.pat_off + 16 * static_cast<int64_t>(r),
+                         lens + d.len_off + 4 * static_cast<int64_t>(r),
+                         d.max_len, pj, bound);
            });
 }
 
@@ -259,56 +266,26 @@ pattern_scan_rowgroup_kernel(const uint8_t* __restrict__ buf,
   }
 }
 
-// The old shared template, kept for pattern_scan_rowgroup_multi only: one
-// thread per 16 mask bytes. It loads its 16-byte chunk and the next one as
-// two uint4 and, for each pattern byte j, compares the 16 bytes
-// window[j..j+15] against p[j] four at a time with __vcmpeq4 on
-// funnel-shifted words. row_stride: bytes from one row of buf to the next;
-// row r's pattern is pats[16 r .. 16 r + 15] and its length lens[r];
-// max_len is the launch's longest length (the loop bound).
+// The row-group form with one pattern per row: #3's grid (one block per
+// row, grid-stride; gridDim.y blocks per row when rows are few) over the
+// group body's row loop, so row r's pattern and length are read once per
+// row and thread, after its first chunk loads. #3 keeps its own loop: on
+// the group body's it lost ~3 %.
 __global__ void __launch_bounds__(kThreads)
-pattern_scan_kernel(const uint8_t* __restrict__ buf, uint8_t* __restrict__ mask,
-                    int64_t rows, int64_t width, int64_t row_stride,
-                    int max_len, const uint8_t* __restrict__ pats,
-                    const int32_t* __restrict__ lens) {
-  const int64_t vecs_per_row = width / 16;
-  const int64_t total = rows * vecs_per_row;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t v = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       v < total; v += stride) {
-    const int64_t r = v / vecs_per_row;
-    const int64_t c = (v - r * vecs_per_row) * 16;
-    const uint4 p = reinterpret_cast<const uint4*>(pats)[r];
-    const uint64_t lo = static_cast<uint64_t>(p.x) | (static_cast<uint64_t>(p.y) << 32);
-    const uint64_t hi = static_cast<uint64_t>(p.z) | (static_cast<uint64_t>(p.w) << 32);
-    const int row_len = lens[r];
-    const uint8_t* src = buf + r * row_stride + c;
-    const uint4 a = *reinterpret_cast<const uint4*>(src);
-    const uint4 b = *reinterpret_cast<const uint4*>(src + 16);
-    const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-    uint32_t acc[4] = {~0u, ~0u, ~0u, ~0u};
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      // positions past the row's own length are forced to match
-      if (j < max_len && (j == 0 || j < row_len)) {
-        const uint64_t word = j < 8 ? lo : hi;
-        const uint32_t pj =
-            static_cast<uint32_t>((word >> (8 * (j & 7))) & 0xFFu) * 0x01010101u;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int off = j + 4 * q;  // first window byte of this word
-          const uint32_t bytes4 =
-              __funnelshift_r(w[off >> 2], w[(off >> 2) + 1], (off & 3) * 8);
-          acc[q] &= __vcmpeq4(bytes4, pj);
-        }
-      }
-    }
-    uint4 out;
-    out.x = acc[0] & 0x01010101u;
-    out.y = acc[1] & 0x01010101u;
-    out.z = acc[2] & 0x01010101u;
-    out.w = acc[3] & 0x01010101u;
-    *reinterpret_cast<uint4*>(mask + r * width + c) = out;
+pattern_scan_rowgroup_multi_kernel(const uint8_t* __restrict__ buf,
+                                   uint8_t* __restrict__ mask, int64_t rows,
+                                   int64_t width, int64_t row_stride,
+                                   const uint8_t* __restrict__ pats,
+                                   const uint8_t* __restrict__ lens,
+                                   int max_len) {
+  const int64_t chunks = width / 16;
+  const int64_t stride = static_cast<int64_t>(blockDim.x) * gridDim.y;
+  const int64_t c0 = static_cast<int64_t>(blockIdx.y) * blockDim.x + threadIdx.x;
+  for (int64_t r = blockIdx.x; r < rows; r += gridDim.x) {
+    scan_row(buf + r * row_stride, mask + r * width, chunks, c0, stride,
+             [&](uint32_t (&pj)[16], int& bound) {
+               row_pattern(pats + 16 * r, lens + 4 * r, max_len, pj, bound);
+             });
   }
 }
 
@@ -398,6 +375,32 @@ int launch_group(const void* buf, void* mask, const void* pats,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Launch a row-group kernel over rows of `width` bytes: a block as wide as
+// the row's chunks (whole warps, at most kThreads), at most one wave of
+// resident blocks, and, when the rows are fewer than a wave, each row split
+// over gridDim.y blocks, at most until a thread has kAhead chunks.
+template <typename Kernel, typename... Args>
+int launch_rowgroup(Kernel kernel, int64_t rows, int64_t width, void* stream,
+                    Args... args) {
+  if (rows > 0) {
+    const int64_t chunks = width / 16;
+    const int threads = static_cast<int>(
+        chunks >= kThreads ? kThreads : (chunks + 31) / 32 * 32);
+    int dev = 0, sms = 1, per_sm = 1;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+    const int64_t wave = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
+    const int64_t rounds = (chunks + threads * kAhead - 1) / (threads * kAhead);
+    int64_t per_row = rows < wave ? wave / rows : 1;
+    if (per_row > rounds) per_row = rounds;
+    const dim3 grid(static_cast<unsigned>(rows < wave ? rows : wave),
+                    static_cast<unsigned>(per_row));
+    kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(args...);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // One launch over a group of batch matrices, one pattern for all.
@@ -438,38 +441,17 @@ extern "C" int pattern_scan_rowgroup(const void* buf, void* mask, int64_t rows,
       reinterpret_cast<uintptr_t>(mask) % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (rows > 0) {
-    // a block as wide as the row's chunks (whole warps, at most kThreads),
-    // and at most one wave of resident blocks
-    const int64_t chunks = width / 16;
-    const int threads = static_cast<int>(
-        chunks >= kThreads ? kThreads : (chunks + 31) / 32 * 32);
-    int dev = 0, sms = 1, per_sm = 1;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, pattern_scan_rowgroup_kernel, threads, 0);
-    const int64_t wave = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
-    // rows fewer than a wave: split each row over blocks, at most until
-    // a thread has kAhead chunks
-    const int64_t rounds = (chunks + threads * kAhead - 1) / (threads * kAhead);
-    int64_t per_row = rows < wave ? wave / rows : 1;
-    if (per_row > rounds) per_row = rounds;
-    const dim3 grid(static_cast<unsigned>(rows < wave ? rows : wave),
-                    static_cast<unsigned>(per_row));
-    pattern_scan_rowgroup_kernel<<<grid, threads, 0,
-                                   static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(buf), static_cast<uint8_t*>(mask), rows,
-        width, stride, pat_lo, pat_hi, pat_len);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_rowgroup(pattern_scan_rowgroup_kernel, rows, width, stream,
+                         static_cast<const uint8_t*>(buf),
+                         static_cast<uint8_t*>(mask), rows, width, stride,
+                         pat_lo, pat_hi, pat_len);
 }
 
 // One pattern per row over a row-group: buf is (rows, stride) uint8 with
 // stride == width + 128, mask (rows, width) uint8, both 16-byte aligned;
 // pats is (rows, 16) uint8, 16-byte aligned, row r's pattern zero-padded;
-// lens is (rows,) int32, the rows' pattern lengths (1..max_len for a real
-// pattern); 1 <= max_len <= 16.
+// lens is (rows,) int32, the rows' pattern lengths (any value: see the
+// multi forms above); 1 <= max_len <= 16.
 extern "C" int pattern_scan_rowgroup_multi(const void* buf, void* mask,
                                            int64_t rows, int64_t width,
                                            int64_t stride, const void* pats,
@@ -483,15 +465,9 @@ extern "C" int pattern_scan_rowgroup_multi(const void* buf, void* mask,
       reinterpret_cast<uintptr_t>(lens) % 4) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int64_t total = rows * (width / 16);
-  if (total > 0) {
-    int64_t blocks = (total + kThreads - 1) / kThreads;
-    if (blocks > (1 << 30)) blocks = 1 << 30;
-    pattern_scan_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(buf), static_cast<uint8_t*>(mask), rows,
-        width, stride, max_len, static_cast<const uint8_t*>(pats),
-        static_cast<const int32_t*>(lens));
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_rowgroup(pattern_scan_rowgroup_multi_kernel, rows, width,
+                         stream, static_cast<const uint8_t*>(buf),
+                         static_cast<uint8_t*>(mask), rows, width, stride,
+                         static_cast<const uint8_t*>(pats),
+                         static_cast<const uint8_t*>(lens), max_len);
 }

@@ -1,12 +1,14 @@
 """Grouped launches: ``digest_signature_batch`` sweeps every width bucket of
-a call in one launch of the fused kernel, and the row-group scan has its
-own body.
+a call in one launch of the fused kernel, and the row-group scans (one
+pattern, and one pattern per row) run the early-exit body.
 
 The packing and unpacking (descriptor table, offsets, per-bucket views)
 run on every device; on the CPU each table entry goes through
 ``digest_sig_plain``, and the results are held against the JAX
 reference's ``digest_signature_batch`` (Pallas in interpret mode) and
-against ``zlib.adler32`` / ``signature_of``. The ``cuda``-marked tests
+against ``zlib.adler32`` / ``signature_of``; the per-row-pattern row-group
+scan's plain version against the reference's
+``pattern_scan_rowgroup_multi``. The ``cuda``-marked tests
 hold the CUDA kernels against their plain versions on the card, need no
 JAX, and skip where there is no GPU:
 ``pytest -m cuda tests/test_torch_kernel_groups.py``.
@@ -32,9 +34,12 @@ def ref():
     module level, so the ``cuda`` tests also run where JAX is absent)."""
     import repro.obs
     from repro.kernels.digest_sig import digest_signature_batch as digest
+    from repro.kernels.pattern_scan.pattern_scan import (
+        pattern_scan_rowgroup_multi as rowgroup_multi)
     from repro.obs.kernels import reset_shape_cache as reset_shapes
 
     return SimpleNamespace(obs=repro.obs, digest=digest,
+                           rowgroup_multi=rowgroup_multi,
                            reset_shapes=reset_shapes)
 
 
@@ -160,6 +165,52 @@ def test_group_table_offsets_aligned_and_disjoint():
         ds.digest_sig_group(buf, table, out[:-1], n=5)
 
 
+def _multi_rowgroup(rng, rows: int, width: int, lens) -> tuple:
+    """A (rows, W + 128) row-group over a small alphabet, every payload the
+    whole width, and row r's pattern of length ``lens[r]`` (0, negative or
+    above 16 take 16 bytes) planted at the start, across a chunk edge and
+    at the row's end; where the width allows, row 0's last bytes "ab"
+    with the pattern "ab" and 14 zero bytes, a match that runs into the
+    zero tail. Returns the matrix, the (rows, 16) patterns and the (rows,)
+    int32 lengths as numpy arrays."""
+    alphabet = np.frombuffer(b"WARC/1.\r\n-T", np.uint8)
+    m = np.zeros((rows, width + 128), np.uint8)
+    m[:, :width] = rng.choice(alphabet, (rows, width))
+    pats = rng.choice(alphabet, (rows, 16))
+    lens = np.asarray(lens, np.int32)
+    for r in range(rows):
+        k = int(lens[r]) if 1 <= lens[r] <= 16 else 16
+        pats[r, k:] = 0
+        for at in (0, 13, width - k):
+            if at >= 0:
+                end = min(at + k, width)
+                m[r, at:end] = pats[r, :end - at]
+    if width >= 16:
+        m[0, width - 2:width] = pats[0, :2] = (ord("a"), ord("b"))
+        pats[0, 2:] = 0
+        lens[0] = 16
+    return m, pats, lens
+
+
+def test_rowgroup_multi_plain_matches_reference(ref):
+    """The plain version (what the wrapper runs on the CPU) against the
+    reference's Pallas kernel in interpret mode: lengths 1..16 across the
+    rows, 0, negative and above max_len; max_len 16 and 7."""
+    from repro_torch.kernels.pattern_scan import pattern_scan as ps
+
+    rng = np.random.default_rng(11)
+    lens = [*range(1, 17), 0, -3, 40, 17]
+    m, pats, n = _multi_rowgroup(rng, len(lens), 48, lens)
+    for max_len in (16, 7):
+        got = ps.pattern_scan_rowgroup_multi(
+            torch.from_numpy(m), torch.from_numpy(pats),
+            torch.from_numpy(n), max_len)
+        want = np.asarray(ref.rowgroup_multi(
+            m, pats, n.reshape(-1, 1), max_len=max_len, interpret=True))
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert want[0, 46] == 1 and want.sum() > len(lens)
+
+
 def _need_gpu():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
@@ -249,3 +300,35 @@ def test_cuda_rowgroup_scan_matches_plain():
             torch.cuda.synchronize()
             assert ps.rowgroup_launches == before + 1
             assert torch.equal(got, want), (m.shape, bytes(p[:plen]))
+
+
+@pytest.mark.cuda
+def test_cuda_rowgroup_multi_scan_matches_plain():
+    _need_gpu()
+    from repro_torch.kernels.pattern_scan import pattern_scan as ps
+
+    rng = np.random.default_rng(2)
+    cases = []
+    # 1 row split over blocks, more rows than a wave, width 16
+    for rows, width in ((1, 12416), (2048, 256), (5, 16), (33, 1536)):
+        lens = rng.integers(1, 17, rows)
+        lens[1:4] = (0, 40, -3)[:max(0, rows - 1)]
+        m, pats, n = _multi_rowgroup(rng, rows, width, lens)
+        cases.append((m, pats, n))
+        # the worst case: every row matches all 16 bytes everywhere
+        a = np.zeros_like(m)
+        a[:, :width] = ord("a")
+        cases.append((a, np.full((rows, 16), ord("a"), np.uint8),
+                      np.full(rows, 16, np.int32)))
+    for m, pats, n in cases:
+        x = torch.from_numpy(m).cuda()
+        p = torch.from_numpy(pats).cuda()
+        for lens in (n, np.minimum(n, 2)):
+            nt = torch.from_numpy(np.ascontiguousarray(lens)).cuda()
+            for max_len in (16, 5):
+                before = ps.rowgroup_multi_launches
+                got = ps.pattern_scan_rowgroup_multi(x, p, nt, max_len)
+                want = ps.pattern_scan_rowgroup_multi_plain(x, p, nt, max_len)
+                torch.cuda.synchronize()
+                assert ps.rowgroup_multi_launches == before + 1
+                assert torch.equal(got, want), (m.shape, max_len)

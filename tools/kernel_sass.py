@@ -11,9 +11,13 @@ size: the longest path through the body, early exits included.
 Usage::
 
     python3 tools/kernel_sass.py [SOURCE.cu ...] [--json PATH]
+    python3 tools/kernel_sass.py --compare BEFORE.cu AFTER.cu
 
 With no source it reads the port's ``digest_sig.cu`` and
-``pattern_scan.cu``.
+``pattern_scan.cu``. ``--compare`` compiles two versions of a source and
+prints, per kernel, whether its SASS is identical in both (every opcode
+and operand; kernels in an anonymous namespace are matched by name, the
+namespace's per-file tag aside).
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ DEFAULT = [ROOT / "src/repro_torch/kernels/digest_sig/csrc/digest_sig.cu",
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)"
                    r"([^;]*);")
 _TARGET = re.compile(r"0x([0-9a-f]+)")
+_ANON = re.compile(r"_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_[0-9a-f]{8}")
 
 
 def sass(src: Path, workdir: Path) -> str:
@@ -80,15 +85,39 @@ def loops(insns: list[tuple[int, str, str]]) -> list[dict]:
     return sorted(found, key=lambda lp: lp["instructions"])
 
 
+def compare(before: Path, after: Path, workdir: Path) -> list[str]:
+    """One line per kernel of ``before`` and ``after``: identical SASS,
+    different SASS (with both instruction counts), or in one only."""
+    a, b = ({_ANON.sub("_GLOBAL__N_", name): [(op, args) for _, op, args in ins]
+             for name, ins in kernels(sass(src, workdir)).items()}
+            for src in (before, after))
+    out = []
+    for name in sorted(a.keys() | b.keys()):
+        if name not in b or name not in a:
+            out.append(f"{name}: only in {before if name in a else after}")
+        elif a[name] == b[name]:
+            out.append(f"{name}: identical SASS ({len(a[name])} "
+                       f"instructions)")
+        else:
+            out.append(f"{name}: SASS differs ({len(a[name])} -> "
+                       f"{len(b[name])} instructions)")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("sources", nargs="*", type=Path)
     ap.add_argument("--json", type=Path, default=None)
+    ap.add_argument("--compare", nargs=2, type=Path, default=None,
+                    metavar=("BEFORE", "AFTER"))
     args = ap.parse_args()
     report = {}
     with tempfile.TemporaryDirectory(dir=ROOT / "build"
                                      if (ROOT / "build").is_dir() else None
                                      ) as tmp:
+        if args.compare:
+            print("\n".join(compare(*args.compare, Path(tmp))))
+            return 0
         for src in args.sources or DEFAULT:
             for name, insns in kernels(sass(src, Path(tmp))).items():
                 report[f"{src}:{name}"] = {"instructions": len(insns),
