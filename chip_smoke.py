@@ -65,7 +65,27 @@ plain PyTorch version:
     over the tokens the engine generates unrecorded while it prefills
     the batch's longer prompts; (c) the reduced ``fastwarc_lm`` (d_head
     32) on the card, its forward equal to the CPU's and its engine's
-    greedy tokens equal to the CPU engine's.
+    greedy tokens equal to the CPU engine's;
+12. process pool (run after phase 9), W = min(4, cpu count) workers
+    started by ``forkserver`` (this process holds a CUDA context): (a)
+    ``build_index(paths, workers=W, fused=False, device="cuda")``, the
+    host path in the workers, every column equal to phase 5's; (b)
+    ``build_index(paths, workers=W, device="cuda")``, the default on the
+    card: ``digest_sig`` launched inside the workers, every column equal
+    to phase 5's and
+    its launches (counted in the workers, carried back through their
+    stats slots into ``index.obs``) equal to phase 5's; (c) ``derive(
+    paths, workers=W, device="cuda")``, the ``.repcol`` file
+    byte-identical to phase 7's; (d) a supervised build with
+    ``digest_sig`` in 2 workers, one killed before its 2nd result
+    (``arm_worker_kill``):
+    exactly 1 respawn and phase 5's columns; a 5th shard of garbage
+    bytes quarantined by ``map_shards(supervise=True, poison_kills=2)``
+    over a sweep that kills its worker on an unreadable shard, the other
+    four partials merged equal to phase 5's index; no
+    ``/dev/shm/repro_torch-shm-*`` segment left afterwards, and the
+    forkserver and the resource tracker stopped and reaped (no process of
+    the run outlives it).
 
 The ``kernels`` line holds each kernel against its plain version on the
 inputs it is then timed on, at its main path's dominant shape; besides,
@@ -94,8 +114,8 @@ split-KV decode (``Sq = 1``) over cache views of 1, 256 and 1,000 keys
 ``scaled_dot_product_attention``.
 
 The launch count of each kernel is set to 0 before each path (phases 5,
-6, 7, 8, 9, 10, 11) and read after it; every kernel of a path must have
-launched.
+6, 7, 8, 9, 10, 11, 12 (b) and (c)) and read after it; every kernel of a
+path must have launched.
 
 Every phase raises on failure. The script prints a ``{"kernels": ...}``
 JSON line, the card's name and power limit, and as its last line
@@ -109,9 +129,13 @@ from __future__ import annotations
 import argparse
 import cProfile
 import ctypes
+import filecmp
 import functools
+import gc
+import glob
 import importlib
 import json
+import os
 import pstats
 import shutil
 import subprocess
@@ -137,10 +161,14 @@ from repro_torch.data.synth import CorpusSpec, records_in, write_corpus  # noqa:
 from repro_torch.index import (  # noqa: E402
     CdxIndex, HeaderFilter, IndexQueryService, QueryEngine, QueryRequest,
     RandomAccessReader, build_index, full_scan_regex, full_scan_search)
+from repro_torch.core.parallel import map_shards  # noqa: E402
+from repro_torch.core.reaper import SHM_PREFIX  # noqa: E402
 from repro_torch.core.warc.checksum import (  # noqa: E402
     block_digest, verify_digest, verify_digests_bulk)
 from repro_torch.index import verify_index  # noqa: E402
-from repro_torch.index.signature import signature_of  # noqa: E402
+from repro_torch.index.cdx import _index_shard  # noqa: E402
+from repro_torch.index.signature import (  # noqa: E402
+    SIG_BITS, SIG_HASHES, SIG_NGRAM, signature_of)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.adler32 import adler32_batch  # noqa: E402
 from repro_torch.kernels.digest_sig import digest_sig as ds  # noqa: E402
@@ -153,6 +181,7 @@ from repro_torch.kernels.pattern_scan import (  # noqa: E402
 from repro_torch.obs import trace  # noqa: E402
 from repro_torch.obs.export import render_stage_table  # noqa: E402
 from repro_torch.serve import ArchiveGateway, Request, ServeEngine  # noqa: E402
+from repro_torch.testing.faults import arm_worker_kill  # noqa: E402
 from repro_torch.configs import get_spec  # noqa: E402
 from repro_torch.core.warc import WarcRecordType  # noqa: E402
 from repro_torch.data.tokenizer import BOS_ID, encode  # noqa: E402
@@ -178,6 +207,7 @@ GW_SHARDS = 4               # gateway scheduler shards (phase 10)
 GW_CLIENTS = 8              # client threads, each submitting ...
 GW_REPEATS = 4              # ... phase 6's requests this many times
 PAD = 128                   # row-group zero tail (ROWGROUP_PAD)
+POOL_WORKERS = 4            # phase 12's pool (at most the CPU count)
 SLEEP_CYCLES = 4_000_000    # ~2 ms of device spin ahead of each timed call
 CDX_COLUMNS = ("shard_id", "offset", "comp_len", "uncomp_len", "rtype",
                "status", "digest", "signatures", "frame_off", "frame_base",
@@ -1325,6 +1355,198 @@ def verify_phase(index: CdxIndex, workdir: Path, results: dict) -> None:
         f"records with sha1/md5/crc32/adler32/wrong/malformed headers")
 
 
+# -- phase 12 --------------------------------------------------------------
+def index_or_die(path: str) -> CdxIndex:
+    """Phase 12 (d)'s supervised sweep (module-level: pool workers run
+    it): one shard on the host path; a shard the parser cannot read
+    kills its worker, as a shard that crashes its process would."""
+    try:
+        return _index_shard(path, sig_bits=SIG_BITS, sig_ngram=SIG_NGRAM,
+                            sig_hashes=SIG_HASHES, fused=False, device="cpu")
+    except Exception:
+        os._exit(77)
+
+
+def same_index(got: CdxIndex, want: CdxIndex, label: str) -> None:
+    for name in CDX_COLUMNS:
+        if not np.array_equal(getattr(got, name), getattr(want, name)):
+            raise RuntimeError(f"{label}: column {name} != phase 5's")
+    if (got.uri_heap, got.mime_heap, got.shard_paths) != (
+            want.uri_heap, want.mime_heap, want.shard_paths):
+        raise RuntimeError(f"{label}: heaps or shard paths != phase 5's")
+
+
+def pool_stats(snap, records: int | None = None) -> dict:
+    """The pool's transport and supervisor counters of a merged snapshot;
+    with ``records``, also checks that the workers' ``index.records``
+    arrived once each (none lost, none counted twice)."""
+    c = snap.counters
+    if records is not None and c.get("index.records") != records:
+        raise RuntimeError(f"pool: index.records {c.get('index.records')} "
+                           f"in the merged snapshot, {records} records")
+    return {"transport": "shm" if snap.gauge("pool.transport.shm") else
+            "pickle",
+            "transport_stats": {k[len("pool.transport."):]: v
+                                for k, v in sorted(c.items())
+                                if k.startswith("pool.transport.")},
+            "supervisor_stats": {k: c.get(f"pool.{k}", 0) for k in
+                                 ("respawns", "quarantined", "hangs")},
+            "sources": list(snap.sources)}
+
+
+def worker_stages(snap) -> dict:
+    """Seconds of the workers' ``index.stage.*`` and ``stage.
+    digest_signature_batch.*`` counters, summed over the workers (they
+    reach this process through the workers' stats slots)."""
+    c = snap.counters
+    out = {k: c.get(f"index.stage.{k}_us", 0) / 1e6
+           for k in ("parse", "digest_sig", "assemble")}
+    out.update({f"digest_sig.{k}": c.get(
+        f"stage.digest_signature_batch.{k}_us", 0) / 1e6
+        for k in ("pack", "h2d", "kernel", "d2h", "fold")})
+    return {k: v for k, v in out.items() if v}
+
+
+def pool_phase(paths: list[str], workdir: Path, index: CdxIndex,
+               results: dict) -> None:
+    """Phase 12: build and derive through the process pool."""
+    cpus = os.cpu_count() or 1
+    w = min(POOL_WORKERS, cpus)
+    n = len(index)
+    out: dict = {"workers": w, "cpu_count": cpus}
+    log(f"[pool] W = {w} workers, os.cpu_count() = {cpus}; map_shards "
+        f"sends each shard's result through its worker's pipe (transport "
+        f"pickle, no ring segments)")
+
+    # (a) the host path in the workers, asked for
+    obs.reset()
+    t0 = time.perf_counter()
+    idx_a = build_index(paths, workers=w, fused=False, device="cuda")
+    dt = time.perf_counter() - t0
+    same_index(idx_a, index, "pool (a)")
+    out["host_build"] = {"seconds": dt, "records_per_s": n / dt,
+                         "worker_stages_s": worker_stages(idx_a.obs),
+                         **pool_stats(idx_a.obs, n)}
+    log(f"[pool] (a) build_index(workers={w}, fused=False), host path in "
+        f"the workers: "
+        f"{dt:.3f} s = {n / dt:.1f} records/s (phase 5, serial on the "
+        f"card: {results['build']['records_per_s']:.1f}); columns == "
+        f"phase 5's; worker stages summed (s): "
+        f"{worker_stages(idx_a.obs)}; {pool_stats(idx_a.obs)}")
+
+    # (b) the default on the card: digest_sig launched inside the workers
+    obs.reset()
+    ds.launches = 0
+    t0 = time.perf_counter()
+    idx_b = build_index(paths, workers=w, device="cuda")
+    dt = time.perf_counter() - t0
+    same_index(idx_b, index, "pool (b)")
+    launches = idx_b.obs.counter("kernel.digest_sig.launches")
+    buckets = idx_b.obs.counter("kernel.digest_signature_batch.dispatches")
+    if ds.launches or launches != results["digest_sig_launches"]:
+        raise RuntimeError(
+            f"pool (b): {launches} digest_sig launches in the workers and "
+            f"{ds.launches} in this process; phase 5 made "
+            f"{results['digest_sig_launches']}")
+    results["pool_digest_sig_launches"] = launches
+    out["fused_build"] = {"seconds": dt, "records_per_s": n / dt,
+                          "digest_sig_launches": launches,
+                          "width_buckets": buckets,
+                          "worker_stages_s": worker_stages(idx_b.obs),
+                          **pool_stats(idx_b.obs, n)}
+    log(f"[pool] (b) build_index(workers={w}) (default: digest_sig in the "
+        f"workers): {dt:.3f} s = "
+        f"{n / dt:.1f} records/s; columns == phase 5's; {launches} "
+        f"digest_sig launches in the workers (kernel.digest_sig.launches "
+        f"via their stats slots; phase 5: {results['digest_sig_launches']}), "
+        f"{buckets} width buckets; worker stages summed (s): "
+        f"{worker_stages(idx_b.obs)}; {pool_stats(idx_b.obs)}")
+
+    # (c) derive: the workers parse, this process launches digest_sig
+    out2 = workdir / "pool.repcol"
+    obs.reset()
+    ds.launches = 0
+    t0 = time.perf_counter()
+    store2 = derive(paths, str(out2), workers=w, device="cuda")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    results["pool_derive_digest_sig_launches"] = ds.launches
+    snap = store2.obs
+    c = obs.snapshot().counters
+    stage = {k: c.get(f"derive.stage.{k}_us", 0) / 1e6
+             for k in ("parse", "digest_sig", "pack_write")}
+    store2.close()
+    if not filecmp.cmp(out2, workdir / "corpus.repcol", shallow=False):
+        raise RuntimeError("pool (c): the .repcol file != phase 7's")
+    out["derive"] = {"seconds": dt, "records_per_s": n / dt,
+                     "digest_sig_launches": ds.launches, "stages_s": stage,
+                     **pool_stats(snap)}
+    log(f"[pool] (c) derive(workers={w}): {dt:.3f} s = {n / dt:.1f} "
+        f"records/s (phase 7: {results['derive']['records_per_s']:.1f}); "
+        f".repcol byte-identical to phase 7's ({out2.stat().st_size} "
+        f"bytes); {ds.launches} digest_sig launches here; stages (s): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stage.items())
+        + f"; {pool_stats(snap)}")
+    out2.unlink()
+
+    # (d) supervision: one injected worker death (the digest kernel in
+    # the workers, so the replacement opens a CUDA context of its own),
+    # then a poison shard. Two workers: one of them takes a 2nd shard
+    obs.reset()
+    t0 = time.perf_counter()
+    with arm_worker_kill(workdir, nth=2) as latch:
+        idx_d = build_index(paths, workers=2, supervise=True, device="cuda")
+        fired = os.path.exists(latch)
+    dt = time.perf_counter() - t0
+    same_index(idx_d, index, "pool (d) kill")
+    st = pool_stats(idx_d.obs, n)
+    if not fired or st["supervisor_stats"]["respawns"] != 1:
+        raise RuntimeError(f"pool (d): kill fired {fired}, "
+                           f"{st['supervisor_stats']}")
+    out["kill"] = {"seconds": dt, **st}
+    log(f"[pool] (d) supervised build_index(workers=2) (digest_sig in the "
+        f"workers) with a "
+        f"worker killed before its 2nd result: 1 respawn, columns == phase "
+        f"5's, {dt:.3f} s; {st}")
+    poison = workdir / "poison.warc.gz"
+    poison.write_bytes(b"\x1f\x8b\x08" + bytes(64))
+    obs.reset()
+    t0 = time.perf_counter()
+    parts, snap = map_shards(index_or_die, [*paths, str(poison)],
+                             workers=w, supervise=True, poison_kills=2,
+                             with_obs=True)
+    dt = time.perf_counter() - t0
+    st = pool_stats(snap, n)
+    if parts[-1] is not None or st["supervisor_stats"]["quarantined"] != 1:
+        raise RuntimeError(f"pool (d): the poison shard was not "
+                           f"quarantined: {st}")
+    same_index(CdxIndex.merge(parts[:-1]), index, "pool (d) poison")
+    out["poison"] = {"seconds": dt, **st}
+    log(f"[pool] (d) map_shards(supervise=True, poison_kills=2) over the "
+        f"4 shards and a garbage one: the garbage shard quarantined, the "
+        f"other four partials == phase 5's index, {dt:.3f} s; {st}")
+    left = glob.glob(f"/dev/shm/{SHM_PREFIX}-*")
+    if left:
+        raise RuntimeError(f"pool: shared-memory segments left: {left}")
+    out["shm_left"] = 0
+    results["pool"] = out
+    log(f"[pool] /dev/shm/{SHM_PREFIX}-* segments left afterwards: none")
+
+
+def stop_mp_helpers() -> None:
+    """Stop and reap the helper processes ``multiprocessing`` started
+    for this run: the forkserver (phase 12's pools) and the resource
+    tracker (the corpus's spawn pool, the pools' semaphores). Left to
+    themselves they exit only after this script does, as orphans that
+    the chip machine's PID 1 does not reap. A later pool or semaphore
+    starts them again."""
+    from multiprocessing import forkserver, resource_tracker
+
+    gc.collect()  # finalize dead semaphores while the tracker still runs
+    forkserver._forkserver._stop()
+    resource_tracker._resource_tracker._stop()
+
+
 # -- phase 10 --------------------------------------------------------------
 def gateway_phase(index: CdxIndex, checked: dict, results: dict) -> None:
     labels = {id(r): label for label, r in REQUESTS}
@@ -2069,7 +2291,9 @@ def kernel_line(results: dict, store: ColumnStore) -> dict:
          "replaces": "src/repro/kernels/digest_sig/digest_sig.py:84",
          "launches": (results["digest_sig_launches"]
                       + results["derive_digest_sig_launches"]
-                      + results["verify_digest_sig_launches"]),
+                      + results["verify_digest_sig_launches"]
+                      + results["pool_digest_sig_launches"]
+                      + results["pool_derive_digest_sig_launches"]),
          "max_abs_err": err["digest_sig"],
          "ms": dms, "plain_ms": dplain, "bound_ms": b_dig,
          "bound_by": by_dig, "library_ms": None,
@@ -2078,7 +2302,10 @@ def kernel_line(results: dict, store: ColumnStore) -> dict:
          "launches_by_phase": {
              "build": results["digest_sig_launches"],
              "derive": results["derive_digest_sig_launches"],
-             "verify": results["verify_digest_sig_launches"]}},
+             "verify": results["verify_digest_sig_launches"],
+             "pool build (in the workers)":
+                 results["pool_digest_sig_launches"],
+             "pool derive": results["pool_derive_digest_sig_launches"]}},
         {"name": "pattern_scan_rowgroup", "route": "cuda",
          "source": "src/repro_torch/kernels/pattern_scan/csrc/pattern_scan.cu",
          "replaces": "src/repro/kernels/pattern_scan/pattern_scan.py:185",
@@ -2187,6 +2414,10 @@ def main() -> int:
     columnar_serve(store, stamps, checked, results)
     profile_broad(store, results)
     verify_phase(index, workdir, results)
+    try:
+        pool_phase(paths, workdir, index, results)
+    finally:
+        stop_mp_helpers()
     gateway_phase(index, checked, results)
     rowgroup_multi_phase(store, results)
     lm_phase(paths, results)
@@ -2199,6 +2430,10 @@ def main() -> int:
                 "adler32 (verify)": results["adler32_launches"],
                 "digest_sig (verify, check_signatures)":
                     results["verify_digest_sig_launches"],
+                "digest_sig (pool build, in the workers)":
+                    results["pool_digest_sig_launches"],
+                "digest_sig (pool derive)":
+                    results["pool_derive_digest_sig_launches"],
                 "pattern_scan_batch_multi (gateway)":
                     results["multi_launches"],
                 "pattern_scan_rowgroup_multi (row-group check)":
@@ -2219,6 +2454,7 @@ def main() -> int:
         Path(args.json_out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json_out).write_text(json.dumps(results, indent=1))
     shutil.rmtree(workdir)
+    stop_mp_helpers()
     print(json.dumps(line), flush=True)
     print(device_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,9 @@ and everything a query will ever touch comes out the other side as
 
 * per-shard extraction: stream offsets, content lengths, record types,
   HTTP statuses, WARC-Date timestamps, URI/MIME heaps, and the raw
-  content blocks concatenated into one buffer;
+  content blocks concatenated into one buffer — in this process, or in
+  a process pool (``workers > 0``,
+  :func:`repro_torch.core.parallel.map_shards`);
 * packing: a global :func:`~repro_torch.columnar.store.pack_plan` over
   the merged lengths cuts half-step width-bucketed row-groups; each
   matrix is assembled once, streamed into the payload blob, and swept
@@ -22,6 +24,7 @@ derive of the same corpus.
 from __future__ import annotations
 
 import calendar
+import os
 import time
 
 import numpy as np
@@ -118,39 +121,57 @@ def derive(paths, out_path: str, *, workers: int = 0,
            supervise: bool = False, device="cuda") -> ColumnStore:
     """Derive columnar shards from a WARC corpus; returns the opened store.
 
-    One parser sweep per source shard, in shard order (record rows match
-    a CDX build of the same corpus 1:1), then one fused kernel launch on
-    ``device`` per packed row-group. Stage timings are published to the
+    One parser sweep per source shard (``workers > 0`` fans the sweeps
+    out through ``map_shards``; the workers only parse, and the partials
+    merge in shard order, so record rows match a CDX build of the same
+    corpus 1:1), then one fused kernel launch on ``device`` per packed
+    row-group, in this process. Stage timings are published to the
     process obs registry as ``derive.stage.{parse,digest_sig,
     pack_write}_us`` beside ``derive.records`` / ``derive.payload_bytes``
     / ``derive.rowgroups``.
 
-    The sweep is serial: ``workers > 0`` (the process pool) and
-    ``tolerant`` / ``supervise`` (recovering parser, supervised pool)
-    raise ``NotImplementedError``. LZ4 and zstd shards raise
-    ``NotImplementedError`` from the parser. A signature geometry the
-    kernel does not cover raises ``ValueError``.
+    ``supervise`` (with ``workers > 0``) retries worker deaths; a shard
+    that keeps killing workers is dropped and reported as one
+    ``shard_quarantined`` :class:`~repro_torch.core.warc.errors.
+    LedgerEntry` on ``store.errors``. The store carries the merged
+    observability snapshot of the sweep on ``store.obs``.
+
+    ``tolerant`` (the recovering parser) raises ``NotImplementedError``,
+    and so do LZ4 and zstd shards, from the parser. A signature geometry
+    the kernel does not cover raises ``ValueError``.
     """
     from repro_torch import obs
     from repro_torch._device import resolve_device
+    from repro_torch.core.parallel import map_shards
+    from repro_torch.core.warc.errors import LedgerEntry
     from repro_torch.kernels.digest_sig.ops import (_sig_geometry,
                                                     digest_signature_rowgroup)
 
-    if workers:
-        raise NotImplementedError("derive(workers>0) needs the process pool, "
-                                  "which is not ported yet (ROADMAP: the "
-                                  "process pool)")
-    if tolerant or supervise:
-        raise NotImplementedError("tolerant/supervised derive is not ported "
-                                  "yet (ROADMAP: the process pool, tolerant "
-                                  "parsing)")
+    if tolerant:
+        raise NotImplementedError("tolerant derive is not ported yet "
+                                  "(ROADMAP: tolerant parsing)")
     _sig_geometry(sig_bits, sig_ngram, sig_hashes)
     dev = resolve_device(device)
     reg = obs.registry()
     paths = [str(p) for p in paths]
     t0 = time.perf_counter()
-    parts = [_extract_shard(p) for p in paths]
+    partials, obs_snap = map_shards(_extract_shard, paths, workers=workers,
+                                    supervise=supervise, with_obs=True)
     t_parse = time.perf_counter()
+    errors: list = []
+    parts: list[dict] = []
+    for path, part in zip(paths, partials):
+        if part is None:  # quarantined by the pool supervisor
+            try:
+                size = os.path.getsize(path)
+            except OSError:
+                size = 0
+            errors.append(LedgerEntry(
+                shard=path, offset=0, error_class="shard_quarantined",
+                bytes_skipped=size,
+                message="shard repeatedly killed derive workers"))
+            continue
+        parts.append(part)
     if not parts:
         raise ValueError("nothing to derive")
     shard_paths = [p["path"] for p in parts]
@@ -248,4 +269,7 @@ def derive(paths, out_path: str, *, workers: int = 0,
     reg.counter_add("derive.stage.digest_sig_us", int(t_sig * 1e6))
     reg.counter_add("derive.stage.pack_write_us",
                     int((t_end - t_parse - t_sig) * 1e6))
-    return ColumnStore(out_path)
+    store = ColumnStore(out_path)
+    store.obs = obs_snap
+    store.errors = errors
+    return store

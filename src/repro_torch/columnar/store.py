@@ -148,6 +148,10 @@ class ColumnStore:
         # mime() results must outlive close()
         self.uri_heap: bytes = f.blob("uri_heap")
         self.mime_heap: bytes = f.blob("mime_heap")
+        # in-memory only (not in the file): derive attaches its merged
+        # ObsSnapshot and the LedgerEntry rows of quarantined shards
+        self.obs = None
+        self.errors: list = []
 
     # -- access ----------------------------------------------------------
     def __len__(self) -> int:

@@ -1,6 +1,6 @@
 """WARC streams, records and the FastWARC-style parser (gzip and
 uncompressed)."""
-from .errors import RecordReadError
+from .errors import LedgerEntry, RecordReadError
 from .fastwarc import FastWARCIterator, read_record_at
 from .record import (HttpHeaderMap, WarcHeaderMap, WarcRecord,
                      WarcRecordType)
@@ -9,6 +9,7 @@ from .writer import WarcWriter, serialize_record
 __all__ = [
     "FastWARCIterator",
     "HttpHeaderMap",
+    "LedgerEntry",
     "RecordReadError",
     "WarcHeaderMap",
     "WarcRecord",

@@ -1,7 +1,31 @@
-"""Errors of the record readers."""
+"""Errors of the record readers, and the damage ledger's entry.
+
+A :class:`LedgerEntry` accounts for one byte range a shard job could not
+process. The process pool's supervisor reports a shard that keeps
+killing workers as one entry of class ``shard_quarantined`` covering the
+whole file.
+"""
 from __future__ import annotations
 
-__all__ = ["RecordReadError"]
+from dataclasses import dataclass
+
+__all__ = ["LedgerEntry", "RecordReadError"]
+
+
+@dataclass(frozen=True)
+class LedgerEntry:
+    """One quarantined byte range (picklable: crosses process boundaries).
+
+    ``offset`` is in the addressing domain of the stream that produced
+    it: compressed-file offsets for gzip member archives (the domain CDX
+    offsets live in), decompressed offsets for uncompressed streams.
+    """
+
+    shard: str | None
+    offset: int
+    error_class: str
+    bytes_skipped: int
+    message: str = ""
 
 
 class RecordReadError(RuntimeError):

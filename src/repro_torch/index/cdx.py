@@ -15,7 +15,10 @@ lets pattern queries skip decompression of records that cannot match.
 
 The build computes digest and signature of each batch of record payloads
 in one fused kernel sweep on the device
-(:func:`repro_torch.kernels.digest_sig.digest_signature_batch`).
+(:func:`repro_torch.kernels.digest_sig.digest_signature_batch`), or on
+the host (``zlib.adler32`` and :func:`~repro_torch.index.signature.
+signature_of`); ``build_index(workers=N)`` sweeps the shards in a
+process pool (:func:`repro_torch.core.parallel.map_shards`).
 :class:`RandomAccessReader` opens a shard at an indexed offset and
 parses exactly one record; :func:`verify_index` re-reads every indexed
 record and checks its stored digest (and optionally its signature) in
@@ -27,10 +30,12 @@ an identity copy of ``offset`` for gzip and uncompressed shards.
 """
 from __future__ import annotations
 
+import functools
 import io
 import os
 import struct
 import time
+import zlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -119,6 +124,12 @@ class CdxIndex:
         self.sig_bits = sig_bits
         self.sig_ngram = sig_ngram
         self.sig_hashes = sig_hashes
+        # LedgerEntry rows of the build: a shard the supervised pool
+        # quarantined. In-memory only — not persisted by save()/load()
+        self.errors: list = []
+        # build_index attaches the merged ObsSnapshot of its sweep
+        # (parent + pool + workers). In-memory only, like errors
+        self.obs = None
         self._uris: np.ndarray | None = None
         self._mimes: np.ndarray | None = None
 
@@ -313,11 +324,14 @@ class CdxIndex:
         merged = {name: np.concatenate(parts) for name, parts in cols.items()}
         merged["uri_off"] = np.concatenate(uri_offs)
         merged["mime_off"] = np.concatenate(mime_offs)
-        return cls(shard_paths, shard_kinds, merged,
-                   b"".join(p.uri_heap for p in partials),
-                   b"".join(p.mime_heap for p in partials),
-                   sig_bits=ref.sig_bits, sig_ngram=ref.sig_ngram,
-                   sig_hashes=ref.sig_hashes)
+        out = cls(shard_paths, shard_kinds, merged,
+                  b"".join(p.uri_heap for p in partials),
+                  b"".join(p.mime_heap for p in partials),
+                  sig_bits=ref.sig_bits, sig_ngram=ref.sig_ngram,
+                  sig_hashes=ref.sig_hashes)
+        for p in partials:
+            out.errors.extend(p.errors)
+        return out
 
 
 # --------------------------------------------------------------------------
@@ -340,21 +354,31 @@ def _fused_supported(sig_bits: int, sig_ngram: int) -> bool:
 
 
 def _index_shard(path: str, *, sig_bits: int, sig_ngram: int,
-                 sig_hashes: int, device) -> CdxIndex:
-    """One-pass sweep of one shard into a single-shard partial index.
+                 sig_hashes: int, fused: bool = True,
+                 device="cuda") -> CdxIndex:
+    """One-pass sweep of one shard into a single-shard partial index
+    (module-level: a pool worker runs it, under spawn too).
 
-    Digest + signature go through the batched fused kernel sweep on
-    ``device``: record payloads are borrowed zero-copy out of the parse
-    arena (``content_view()`` — the pending batch pins its arenas,
-    bounded by ``_FUSED_BATCH`` records *and* ``_FUSED_BATCH_BYTES``
-    payload bytes) and copied into the padded batch matrix by the flush,
-    before the pins are released.
+    ``fused=True``: digest + signature go through the batched fused
+    kernel sweep on ``device`` (resolved here, so a pool worker opens
+    its own CUDA context): record payloads are borrowed zero-copy out of
+    the parse arena (``content_view()`` — the pending batch pins its
+    arenas, bounded by ``_FUSED_BATCH`` records *and*
+    ``_FUSED_BATCH_BYTES`` payload bytes) and copied into the padded
+    batch matrix by the flush, before the pins are released.
+    ``fused=False``: the host path, ``zlib.adler32`` and
+    :func:`~repro_torch.index.signature.signature_of` per record; the
+    columns are bit-identical either way.
 
     Publishes per-stage wall time to the process obs registry
     (``index.stage.parse_us`` / ``digest_sig_us`` / ``assemble_us``).
     """
     from repro_torch import obs
+    from repro_torch._device import resolve_device
     from repro_torch.kernels.digest_sig import digest_signature_batch
+
+    if fused:
+        device = resolve_device(device)
 
     t_sweep0 = time.perf_counter()
     t_sig = 0.0
@@ -364,8 +388,8 @@ def _index_shard(path: str, *, sig_bits: int, sig_ngram: int,
     uncomp: list[int] = []
     rtypes: list[int] = []
     statuses: list[int] = []
-    digests: list[np.ndarray] = []
-    sigs: list[np.ndarray] = []
+    digests: list = []           # uint32 arrays (fused) / ints (host)
+    sigs: list[np.ndarray] = []  # (B, words) (fused) / (words,) rows (host)
     pending: list[np.ndarray] = []  # borrowed payload views awaiting a flush
     pending_bytes = 0
     uri_parts: list[bytes] = []
@@ -396,11 +420,20 @@ def _index_shard(path: str, *, sig_bits: int, sig_ngram: int,
                       and http.status_code is not None else -1)
             # anything outside the int16 column is as good as no status
             statuses.append(status if 0 <= status <= 0x7FFF else -1)
-            pending.append(np.frombuffer(record.content_view(), np.uint8))
-            pending_bytes += record.content_length
-            if len(pending) >= _FUSED_BATCH or \
-                    pending_bytes >= _FUSED_BATCH_BYTES:
-                flush()
+            if fused:
+                pending.append(np.frombuffer(record.content_view(),
+                                             np.uint8))
+                pending_bytes += record.content_length
+                if len(pending) >= _FUSED_BATCH or \
+                        pending_bytes >= _FUSED_BATCH_BYTES:
+                    flush()
+            else:
+                t0 = time.perf_counter()
+                content = record.content_view()
+                digests.append(zlib.adler32(content))
+                sigs.append(signature_of(content, bits=sig_bits,
+                                         n=sig_ngram, k=sig_hashes))
+                t_sig += time.perf_counter() - t0
             uri = record.header_bytes(b"WARC-Target-URI:") or b""
             mime = (http.get_bytes(b"Content-Type", b"") if http is not None
                     else record.header_bytes(b"Content-Type:") or b"")
@@ -423,6 +456,15 @@ def _index_shard(path: str, *, sig_bits: int, sig_ngram: int,
         comp = np.diff(np.concatenate([off, [end]])).astype(np.uint64)
     else:
         comp = np.empty(0, np.uint64)
+    if not sigs:
+        digest_col = np.empty(0, np.uint32)
+        sig_col = np.empty((0, sig_bits // 64), np.uint64)
+    elif fused:
+        digest_col = np.concatenate(digests)
+        sig_col = np.concatenate(sigs, axis=0)
+    else:
+        digest_col = np.asarray(digests, np.uint32)
+        sig_col = np.stack(sigs)
     columns = {
         "shard_id": np.zeros(n, np.uint32),
         "offset": off,
@@ -430,10 +472,8 @@ def _index_shard(path: str, *, sig_bits: int, sig_ngram: int,
         "uncomp_len": np.asarray(uncomp, np.uint64),
         "rtype": np.asarray(rtypes, np.uint16),
         "status": np.asarray(statuses, np.int16),
-        "digest": (np.concatenate(digests) if digests
-                   else np.empty(0, np.uint32)),
-        "signatures": (np.concatenate(sigs, axis=0) if sigs
-                       else np.empty((0, sig_bits // 64), np.uint64)),
+        "digest": digest_col,
+        "signatures": sig_col,
         # member formats address the compressed stream: a record's
         # "frame" is itself
         "frame_off": off.copy(),
@@ -454,30 +494,84 @@ def _index_shard(path: str, *, sig_bits: int, sig_ngram: int,
     return out
 
 
-def build_index(paths, *, sig_bits: int = SIG_BITS,
+def build_index(paths, *, workers: int = 0, sig_bits: int = SIG_BITS,
                 sig_ngram: int = SIG_NGRAM, sig_hashes: int = SIG_HASHES,
+                fused: bool | None = None, supervise: bool = False,
                 device="cuda") -> CdxIndex:
     """Index a sharded corpus: one parser sweep per shard, merged in
-    shard order.
+    shard order; the columns are bit-identical to the reference
+    package's ``build_index``.
 
-    Each shard's digests and signatures come from the fused
-    ``digest_sig`` kernel on ``device``; the columns are bit-identical to
-    the reference package's ``build_index``. The signature geometry
-    (``sig_bits``/``sig_ngram``/``sig_hashes``) is persisted in the CDX
-    header; ``sig_bits`` must be a power of two multiple of 64,
-    ``2 <= sig_ngram <= 129`` and ``sig_hashes >= 1``.
+    ``workers > 0`` fans the per-shard sweeps out through
+    :func:`repro_torch.core.parallel.map_shards` (each partial is a
+    picklable single-shard :class:`CdxIndex`); ``workers=0`` sweeps
+    serially. Either way the merge is deterministic in shard order.
 
+    ``fused`` selects the fused digest + signature kernel on ``device``
+    (``digest_sig``) over the host path (``zlib.adler32`` +
+    ``signature_of``); both give the same columns. Default (None): the
+    kernel on a GPU, in the workers too; on the CPU the kernel's plain
+    version for serial builds and the host path in pool workers, as the
+    reference does. ``fused=False`` keeps a GPU build on the host. With
+    the kernel and ``workers > 0`` on a GPU, each worker resolves
+    ``device`` itself and launches the kernel there: the kernels are
+    built first, in this process, and the workers are started with
+    ``forkserver`` or ``spawn``, never ``fork``.
+
+    ``supervise`` (with ``workers > 0``) retries worker deaths; a shard
+    that keeps killing workers is dropped from the merge and reported as
+    one ``shard_quarantined`` :class:`~repro_torch.core.warc.errors.
+    LedgerEntry` on the returned index's ``errors``. The index carries
+    the build's merged observability snapshot on ``index.obs``: parent
+    registry counters plus, for worker builds, the pool's transport and
+    supervisor counters and every worker's published counters
+    (``index.stage.*``, ``kernel.*``, ``ingest.*``).
+
+    The signature geometry (``sig_bits``/``sig_ngram``/``sig_hashes``)
+    is persisted in the CDX header; ``sig_bits`` must be a power of two
+    multiple of 64, ``2 <= sig_ngram <= 129`` and ``sig_hashes >= 1``.
     Raises ``ValueError`` for a geometry the kernel does not cover.
     """
     from repro_torch._device import resolve_device
+    from repro_torch.core.parallel import map_shards
+    from repro_torch.core.warc.errors import LedgerEntry
     from repro_torch.kernels.digest_sig.ops import _sig_geometry
 
     dev = resolve_device(device)
     _sig_geometry(sig_bits, sig_ngram, sig_hashes)
-    partials = [_index_shard(str(p), sig_bits=sig_bits, sig_ngram=sig_ngram,
-                             sig_hashes=sig_hashes, device=dev)
-                for p in paths]
-    return CdxIndex.merge(partials)
+    if fused is None:
+        fused = dev.type == "cuda" or workers == 0
+    cuda_workers = bool(workers) and fused and dev.type == "cuda"
+    if cuda_workers:
+        from repro_torch.kernels._build import build_all
+
+        build_all()  # once, here: the workers only load the libraries
+    sweep = functools.partial(_index_shard, sig_bits=sig_bits,
+                              sig_ngram=sig_ngram, sig_hashes=sig_hashes,
+                              fused=fused,
+                              device=device if cuda_workers else dev)
+    paths = [str(p) for p in paths]
+    partials, obs_snap = map_shards(sweep, paths, workers=workers,
+                                    supervise=supervise, with_obs=True,
+                                    cuda_workers=cuda_workers)
+    live: list[CdxIndex] = []
+    dropped: list = []
+    for path, part in zip(paths, partials):
+        if part is None:  # quarantined by the pool supervisor
+            try:
+                size = os.path.getsize(path)
+            except OSError:
+                size = 0
+            dropped.append(LedgerEntry(
+                shard=path, offset=0, error_class="shard_quarantined",
+                bytes_skipped=size,
+                message="shard repeatedly killed indexing workers"))
+            continue
+        live.append(part)
+    merged = CdxIndex.merge(live)
+    merged.errors.extend(dropped)
+    merged.obs = obs_snap
+    return merged
 
 
 # --------------------------------------------------------------------------

@@ -14,12 +14,20 @@ rebuilds and an unchanged one is reused. ``nvcc``'s output (the
 ``-Xptxas -v`` register and shared-memory report) is kept beside each
 library as ``<stem>-<hash>.log``.
 
+Builds are safe across processes (pool workers that start on a cold
+``build/`` at once): ``nvcc`` writes a temporary file that is renamed
+over the library in one step, and the whole build runs under an
+exclusive ``flock`` on ``BUILD_DIR/.lock`` — a process that waited for
+the lock finds the libraries built and compiles nothing.
+
 Each C entry point returns ``cudaGetLastError()`` after its launch; the
 Python wrappers raise when that is not 0.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -70,6 +78,18 @@ def _target(src: Path) -> Path:
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """Exclusive lock on the build directory, across processes."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build_all() -> dict[str, Path]:
     """Compile every stale source (one ``nvcc`` each, run concurrently)
     and return ``stem -> library path``. Raises with ``nvcc``'s output
@@ -79,31 +99,37 @@ def build_all() -> dict[str, Path]:
             return dict(_built)
         targets = {stem: (src, _target(src))
                    for stem, src in _sources().items()}
-        stale = {stem: st for stem, st in targets.items()
-                 if not st[1].is_file()}
-        if stale:
-            nvcc = _nvcc()
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            procs = {}
-            for stem, (src, lib) in stale.items():
-                tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
-                log = open(lib.with_suffix(".log"), "wb")
-                procs[stem] = (subprocess.Popen(
-                    [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                    stdout=log, stderr=subprocess.STDOUT), tmp, lib, log)
-            failed = []
-            for stem, (proc, tmp, lib, log) in procs.items():
-                rc = proc.wait()
-                log.close()
-                if rc == 0:
-                    os.replace(tmp, lib)
-                else:
-                    failed.append(f"{stem}.cu (exit {rc}):\n"
-                                  + lib.with_suffix(".log").read_text())
-            if failed:
-                raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        if any(not lib.is_file() for _, lib in targets.values()):
+            with _build_lock():  # re-check: another process may have built
+                _compile({stem: st for stem, st in targets.items()
+                          if not st[1].is_file()})
         _built.update({stem: lib for stem, (_, lib) in targets.items()})
         return dict(_built)
+
+
+def _compile(stale: dict[str, tuple[Path, Path]]) -> None:
+    """Run ``nvcc`` on each ``stem -> (source, library)``, all at once."""
+    if not stale:
+        return
+    nvcc = _nvcc()
+    procs = {}
+    for stem, (src, lib) in stale.items():
+        tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
+        log = open(lib.with_suffix(".log"), "wb")
+        procs[stem] = (subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=log, stderr=subprocess.STDOUT), tmp, lib, log)
+    failed = []
+    for stem, (proc, tmp, lib, log) in procs.items():
+        rc = proc.wait()
+        log.close()
+        if rc == 0:
+            os.replace(tmp, lib)
+        else:
+            failed.append(f"{stem}.cu (exit {rc}):\n"
+                          + lib.with_suffix(".log").read_text())
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
 
 
 def build_log(stem: str) -> str:

@@ -20,7 +20,10 @@ int32 output buffer). :func:`digest_sig_group` launches
 ``csrc/digest_sig.cu`` once for a CUDA buffer and runs
 :func:`digest_sig_plain` per table entry for a CPU buffer; any other
 device raises. :func:`digest_sig_partials_batch` is the one-entry group
-over one matrix. ``launches`` counts CUDA launches.
+over one matrix. ``launches`` counts CUDA launches in this process, and
+each launch also adds one to the process registry's
+``kernel.digest_sig.launches`` counter, which a pool worker's stats slot
+carries back to the parent (``build_index(workers=N, fused=True)``).
 """
 from __future__ import annotations
 
@@ -198,6 +201,9 @@ def _launch(buf: torch.Tensor, table: np.ndarray, out: torch.Tensor,
                            f"{err}")
     global launches
     launches += 1
+    from repro_torch import obs
+
+    obs.registry().counter_add("kernel.digest_sig.launches")
 
 
 def digest_sig_group(buf: torch.Tensor, table: np.ndarray,

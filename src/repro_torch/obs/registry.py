@@ -181,6 +181,7 @@ class Registry:
         self._counters: Dict[str, int] = {}
         self._gauges: Dict[str, float] = {}
         self._hists: Dict[str, _Reservoir] = {}
+        self._extra_sources: List[str] = []
 
     # -- writers ----------------------------------------------------------
     def counter_add(self, name: str, n: int = 1) -> None:
@@ -207,6 +208,39 @@ class Registry:
                 h = self._hists[name] = _Reservoir(name)
             h.observe(value)
 
+    def attach_source(self, name: str) -> None:
+        """Record that counters folded in here came from another process
+        (a pool worker, the pool itself)."""
+        with self._lock:
+            if name not in self._extra_sources:
+                self._extra_sources.append(name)
+
+    def absorb(self, snap: ObsSnapshot, prefix: str = "") -> None:
+        """Fold a child snapshot into this registry: counters sum,
+        gauges take the max, histogram reservoirs sort-merge then
+        decimate (the :meth:`ObsSnapshot.merged_with` rules), and the
+        snapshot's sources are attached. Call exactly once per child
+        snapshot: counters are cumulative, absorbing twice double-counts."""
+        self.fold_counters(snap.counters, prefix=prefix)
+        with self._lock:
+            for k, v in snap.gauges.items():
+                key = prefix + k
+                self._gauges[key] = max(self._gauges.get(key, v), v)
+            for k, h in snap.histograms.items():
+                key = prefix + k
+                cur = self._hists.get(key)
+                if cur is None:
+                    cur = self._hists[key] = _Reservoir(key)
+                m = _merge_hist(cur.summary(), h) if cur.count else \
+                    dict(h, samples=list(h["samples"]))
+                cur.count = m["count"]
+                cur.total = m["sum"]
+                cur.min = m["min"] if m["count"] else float("inf")
+                cur.max = m["max"] if m["count"] else float("-inf")
+                cur.samples = list(m["samples"])
+        for s in snap.sources:
+            self.attach_source(s)
+
     # -- readers ----------------------------------------------------------
     def counter(self, name: str, default: int = 0) -> int:
         with self._lock:
@@ -224,12 +258,15 @@ class Registry:
             return h.count if h else 0
 
     def snapshot(self, source: Optional[str] = None) -> ObsSnapshot:
+        """Plain-data view; its ``sources`` are this registry's own name
+        followed by every attached source."""
         with self._lock:
+            src = source if source is not None else self.source
             return ObsSnapshot(
                 counters=dict(self._counters),
                 gauges=dict(self._gauges),
                 histograms={k: h.summary() for k, h in self._hists.items()},
-                sources=(source if source is not None else self.source,),
+                sources=(src, *self._extra_sources),
             )
 
     def reset(self) -> None:
@@ -237,3 +274,4 @@ class Registry:
             self._counters.clear()
             self._gauges.clear()
             self._hists.clear()
+            self._extra_sources.clear()

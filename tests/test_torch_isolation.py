@@ -1,11 +1,13 @@
 """``repro_torch`` and ``chip_smoke.py`` run without JAX and without the
 reference package (index build, CDX search, columnar derive and search,
-index verification, the sharded gateway, LM forward and serving), and the
+index verification, the sharded gateway, LM forward and serving, the
+process pool — in its forked and its spawned workers too), and the
 port's entry points default to the GPU."""
 import ast
 import os
 import subprocess
 import sys
+import textwrap
 import threading
 from pathlib import Path
 
@@ -20,11 +22,15 @@ PORT = ROOT / "src" / "repro_torch"
 SUBPACKAGES = ["columnar", "core", "data", "index", "kernels", "obs"]
 # subpackages scanned with another unit: the gateway serves the index;
 # the LM stack (models, configs) runs the attention kernel; checkpoint
-# restore and the serving CLI read data from disk
+# restore and the serving CLI read data from disk; the fault injectors
+# drive the process pool
 ALSO_SCANNED = {"index": ["serve"], "kernels": ["models", "configs"],
-                "data": ["train", "launch"]}
+                "data": ["train", "launch"], "core": ["testing"]}
 
-_BLOCKED_RUN = r"""
+# a script file, not ``-c``: spawned pool workers re-import it, so the
+# import blocker (module level) is installed in every child too; the
+# run itself is the body of its ``__main__`` block
+_BLOCKER = r"""
 import importlib.abc, sys
 
 class _Block(importlib.abc.MetaPathFinder):
@@ -38,6 +44,24 @@ sys.modules["jax"] = None
 sys.meta_path.insert(0, _Block())
 sys.path.insert(0, sys.argv[1] + "/src")
 sys.path.insert(0, sys.argv[1])
+
+
+def _blocked_in_child(path):
+    # runs in a spawned pool worker: build a one-shard index there, and
+    # report whether jax and repro are still blocked and absent
+    from repro_torch.index import build_index
+    blocked = []
+    for name in ("jax", "repro"):
+        try:
+            __import__(name)
+        except ImportError:
+            blocked.append(name)
+    loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")
+              and sys.modules[m] is not None]
+    return len(build_index([path], device="cpu")), blocked, loaded
+"""
+
+_BLOCKED_BODY = r"""
 import tempfile
 import chip_smoke  # module-level code only: main() needs a GPU
 from repro_torch.data.synth import CorpusSpec, write_corpus
@@ -91,17 +115,34 @@ assert logits.shape == (2, 8, cfg.vocab) and bool(torch.isfinite(logits).all())
 engine = ServeEngine(cfg, params, batch_size=2, max_seq=32, device="cpu")
 done = engine.serve([Request(b"web", max_new_tokens=3), Request(b"x", 2)])
 assert [len(r.out_tokens) for r in done] == [3, 2] and all(r.done for r in done)
+# the process pool, its reaper, stats slots and fault injection: forked
+# workers for build and derive, spawned ones for map_shards
+import repro_torch.core.reaper, repro_torch.obs.shmstats
+from repro_torch.core.parallel import map_shards
+from repro_torch.testing.faults import arm_worker_kill
+pooled = build_index(paths, workers=2, device="cpu")
+assert np.array_equal(pooled.signatures, index.signatures)
+pooled_store = derive(paths, f"{d}/p.repcol", workers=2, device="cpu")
+assert len(pooled_store) == len(index)
+pooled_store.close()
+kids = map_shards(_blocked_in_child, paths, workers=2, mp_context="spawn")
+assert [k[0] for k in kids] == [10, 10], kids
+assert all(k[1:] == (["jax", "repro"], []) for k in kids), kids
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")
        and sys.modules[m] is not None]
 assert not bad, bad
 print("ISOLATED-OK", len(index))
 """
+_BLOCKED_RUN = (_BLOCKER + 'if __name__ == "__main__":\n'
+                + textwrap.indent(_BLOCKED_BODY, "    "))
 
 
-def test_port_runs_with_jax_and_reference_blocked():
+def test_port_runs_with_jax_and_reference_blocked(tmp_path):
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
-    out = subprocess.run([sys.executable, "-c", _BLOCKED_RUN, str(ROOT)],
+    script = tmp_path / "blocked_run.py"
+    script.write_text(_BLOCKED_RUN)
+    out = subprocess.run([sys.executable, str(script), str(ROOT)],
                          capture_output=True, text=True, env=env,
                          timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
