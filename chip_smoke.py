@@ -85,7 +85,33 @@ plain PyTorch version:
     four partials merged equal to phase 5's index; no
     ``/dev/shm/repro_torch-shm-*`` segment left afterwards, and the
     forkserver and the resource tracker stopped and reaped (no process of
-    the run outlives it).
+    the run outlives it);
+13. codecs (run last): (a) the paper's Table 1 on this host,
+    ``CorpusSpec(n_pages=600, seed=42)`` best of 3: records/s of
+    ``WARCIOArchiveIterator`` (none and gzip only) and
+    ``FastWARCIterator`` over {none, gzip, lz4, zstd} x {parse, +http,
+    +http+checksum}, each pair yielding the same records, plus the
+    response-only filtered pass (600 yielded, the rest in
+    ``records_skipped``) as total records/s, gzip's and LZ4's parse with
+    the members decoded in this process (``readahead=False``), and LZ4's
+    and zstd's parse speedup over FastWARC+gzip; (b) ``build_index(device="cuda")`` over
+    ``CorpusSpec(n_pages=2_000, seed=7)`` written once per codec: every
+    column but the addressing ones equal across the shards, every
+    digest == ``zlib.adler32``, a frame hint on every zstd row,
+    ``digest_sig`` launched, the gzip and LZ4 sweeps decoded in a child
+    process (``ProcessReadaheadDecoder``); (c) phase 6's requests over
+    that index, each shard's hits equal to the oracle record by record
+    (``pattern_scan_batch`` launched); (d) ``verify_index(device="cuda")``
+    all True, then exactly the flipped LZ4 and zstd rows False
+    (``adler32`` launched); (e) ``derive(device="cuda")`` of the LZ4 and
+    zstd shards, its columns equal to (b)'s rows, and one columnar
+    search equal to (c)'s hits (``digest_sig`` and
+    ``pattern_scan_rowgroup`` launched); (f) ``build_index(tolerant=True,
+    device="cuda")`` over ``corrupt_warc`` copies of the gzip and LZ4
+    shards (``fraction=0.01, seed=0``): a non-empty ledger, every
+    surviving row equal to the intact row of its record ID, no
+    ``/dev/shm/repro_torch-shm-*`` segment left. Without ``zstandard``
+    the zstd shard and cells are left out, and the run says so.
 
 The ``kernels`` line holds each kernel against its plain version on the
 inputs it is then timed on, at its main path's dominant shape; besides,
@@ -114,8 +140,8 @@ split-KV decode (``Sq = 1``) over cache views of 1, 256 and 1,000 keys
 ``scaled_dot_product_attention``.
 
 The launch count of each kernel is set to 0 before each path (phases 5,
-6, 7, 8, 9, 10, 11, 12 (b) and (c)) and read after it; every kernel of a
-path must have launched.
+6, 7, 8, 9, 10, 11, 12 (b) and (c), 13 (b)-(f)) and read after it; every
+kernel of a path must have launched.
 
 Every phase raises on failure. The script prints a ``{"kernels": ...}``
 JSON line, the card's name and power limit, and as its last line
@@ -157,7 +183,9 @@ import torch  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch.columnar import ColumnStore, derive  # noqa: E402
 from repro_torch.core.warc import FastWARCIterator  # noqa: E402
-from repro_torch.data.synth import CorpusSpec, records_in, write_corpus  # noqa: E402
+from repro_torch.core.warc import WARCIOArchiveIterator  # noqa: E402
+from repro_torch.data.synth import (  # noqa: E402
+    CorpusSpec, generate_warc, records_in, write_corpus)
 from repro_torch.index import (  # noqa: E402
     CdxIndex, HeaderFilter, IndexQueryService, QueryEngine, QueryRequest,
     RandomAccessReader, build_index, full_scan_regex, full_scan_search)
@@ -181,7 +209,7 @@ from repro_torch.kernels.pattern_scan import (  # noqa: E402
 from repro_torch.obs import trace  # noqa: E402
 from repro_torch.obs.export import render_stage_table  # noqa: E402
 from repro_torch.serve import ArchiveGateway, Request, ServeEngine  # noqa: E402
-from repro_torch.testing.faults import arm_worker_kill  # noqa: E402
+from repro_torch.testing.faults import arm_worker_kill, corrupt_warc  # noqa: E402
 from repro_torch.configs import get_spec  # noqa: E402
 from repro_torch.core.warc import WarcRecordType  # noqa: E402
 from repro_torch.data.tokenizer import BOS_ID, encode  # noqa: E402
@@ -1944,6 +1972,414 @@ def reduced_lm_check(payloads: list[bytes]) -> dict:
             "engine_tokens": sum(map(len, outs[0])), "launches": launches}
 
 
+# -- phase 13 --------------------------------------------------------------
+TABLE1_SPEC = CorpusSpec(n_pages=600, seed=42)  # Table 1's corpus
+TABLE1_REPS = 3             # best of
+TABLE1_WORKLOADS = {"parse": {"parse_http": False},
+                    "+http": {"parse_http": True},
+                    "+http+checksum": {"parse_http": True,
+                                       "verify_digests": True}}
+CODEC_SPEC = CorpusSpec(n_pages=2_000, seed=7)  # the mixed-codec corpus
+DAMAGE = {"fraction": 0.01, "seed": 0}          # corrupt_warc of (f)
+
+
+def have_zstandard() -> bool:
+    """zstd is a host codec (the ``zstandard`` package), not the device:
+    where it does not import, phase 13 leaves the zstd shard out."""
+    try:
+        import zstandard  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def must_launch(label: str, count: int) -> int:
+    if count <= 0:
+        raise RuntimeError(f"codecs: {label} was never launched")
+    return count
+
+
+def best_rate(count) -> tuple[int, float]:
+    """(records, best records/s of ``TABLE1_REPS`` runs of ``count()``)."""
+    best, n = float("inf"), 0
+    for _ in range(TABLE1_REPS):
+        t0 = time.perf_counter()
+        n = count()
+        best = min(best, time.perf_counter() - t0)
+    return n, n / best
+
+
+def table1(codecs: tuple) -> dict:
+    """Phase 13 (a): the paper's Table 1 on this host — records/s of the
+    WARCIO baseline and the FastWARC-style iterator over codec x
+    workload (WARCIO reads neither LZ4 nor zstd), and the response-only
+    filtered pass as total records (yielded + skipped) per second."""
+    total = records_in(TABLE1_SPEC)
+    rows = []
+    for comp in codecs:
+        data = generate_warc(TABLE1_SPEC, comp)
+        for workload, kw in TABLE1_WORKLOADS.items():
+            n, fast = best_rate(lambda: sum(
+                1 for _ in FastWARCIterator(data, **kw)))
+            if n != total:
+                raise RuntimeError(f"table1 {comp} {workload}: FastWARC "
+                                   f"yielded {n} records, want {total}")
+            row = {"codec": comp, "workload": workload, "parser": "fastwarc",
+                   "records_per_s": fast}
+            if comp in ("none", "gzip"):
+                nb, base = best_rate(lambda: sum(
+                    1 for _ in WARCIOArchiveIterator(data, **kw)))
+                if nb != n:
+                    raise RuntimeError(f"table1 {comp} {workload}: WARCIO "
+                                       f"{nb} records, FastWARC {n}")
+                rows.append({"codec": comp, "workload": workload,
+                             "parser": "warcio", "records_per_s": base})
+                row["speedup_vs_warcio"] = fast / base
+            rows.append(row)
+            if workload == "parse" and comp in ("gzip", "lz4"):
+                # the members decoded in this process: what the decoder
+                # child's start-up and hand-over cost or save
+                _, inproc = best_rate(lambda: sum(1 for _ in FastWARCIterator(
+                    data, readahead=False, **kw)))
+                rows.append({"codec": comp, "workload": workload,
+                             "parser": "fastwarc-no-readahead",
+                             "records_per_s": inproc})
+        it = FastWARCIterator(data, parse_http=False,
+                              record_types=WarcRecordType.response)
+        n_resp = sum(1 for _ in it)
+        want_resp = TABLE1_SPEC.n_pages
+        if n_resp != want_resp or it.records_skipped != total - want_resp:
+            raise RuntimeError(f"table1 {comp} filtered: {n_resp} responses, "
+                               f"{it.records_skipped} skipped of {total}")
+        _, filt = best_rate(lambda: sum(1 for _ in FastWARCIterator(
+            data, parse_http=False,
+            record_types=WarcRecordType.response)) and total)
+        rows.append({"codec": comp, "workload": "filter-response",
+                     "parser": "fastwarc", "records_per_s": filt})
+    gzip_parse = next(r["records_per_s"] for r in rows
+                      if r["codec"] == "gzip" and r["parser"] == "fastwarc"
+                      and r["workload"] == "parse")
+    for r in rows:
+        if r["parser"] == "fastwarc" and r["workload"] == "parse" and \
+                r["codec"] in ("lz4", "zstd"):
+            r["speedup_vs_fastwarc_gzip"] = r["records_per_s"] / gzip_parse
+    for r in rows:
+        extra = "".join(f", {k} {r[k]:.3f}" for k in (
+            "speedup_vs_warcio", "speedup_vs_fastwarc_gzip") if k in r)
+        log(f"[codecs] (a) table1 {r['codec']:4} {r['workload']:15} "
+            f"{r['parser']:21} {r['records_per_s']:.1f} records/s{extra}")
+    return {"records": total, "reps": TABLE1_REPS, "rows": rows}
+
+
+def shard_rows(index: CdxIndex) -> list[np.ndarray]:
+    return [np.flatnonzero(index.shard_id == s)
+            for s in range(len(index.shard_paths))]
+
+
+def codec_build(paths: list[str], codecs: tuple, out: dict) -> CdxIndex:
+    """Phase 13 (b): one seeded corpus written once per codec, indexed in
+    one ``build_index`` on the card; the gzip and LZ4 sweeps must run the
+    child-process member decoder."""
+    obs.reset()
+    ds.launches = 0
+    t0 = time.perf_counter()
+    index = build_index(paths, device="cuda")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    c = obs.snapshot().counters
+    rows = shard_rows(index)
+    members = sum(rows[codecs.index(k)].size for k in ("gzip", "lz4"))
+    decoders = {k: c.get(f"ingest.readahead.{k}", 0)
+                for k in ("process", "thread")}
+    if decoders != {"process": 2, "thread": 0} or \
+            c.get("decoder.members", 0) != members:
+        raise RuntimeError(f"codecs (b): the gzip and LZ4 sweeps did not run "
+                           f"the child-process decoder: {decoders}, "
+                           f"{c.get('decoder.members', 0)} of {members} "
+                           f"members decoded in a child")
+    for name in ("rtype", "status", "uncomp_len", "digest", "signatures"):
+        col = getattr(index, name)
+        for s in range(1, len(rows)):
+            if not np.array_equal(col[rows[s]], col[rows[0]]):
+                raise RuntimeError(f"codecs (b): {name} of the {codecs[s]} "
+                                   f"shard != the uncompressed shard's")
+    for s in range(1, len(rows)):
+        for i, j in zip(rows[s], rows[0]):
+            if index.uri(i) != index.uri(j) or index.mime(i) != index.mime(j):
+                raise RuntimeError(f"codecs (b): row {i}: URI or MIME != the "
+                                   f"uncompressed shard's")
+    for j, rec in zip(rows[0], FastWARCIterator(paths[0], parse_http=False)):
+        if int(index.digest[j]) != zlib.adler32(rec.content_view()):
+            raise RuntimeError(f"codecs (b): row {j}: digest != zlib.adler32")
+    if "zstd" in codecs and any(
+            index.frame_hint(int(i)) is None
+            for i in rows[codecs.index("zstd")]):
+        raise RuntimeError("codecs (b): a zstd row has no frame hint")
+    stage = {k: c.get(f"index.stage.{k}_us", 0) / 1e6
+             for k in ("parse", "digest_sig", "frame_walk", "assemble")}
+    out["build"] = {"records": len(index), "seconds": dt,
+                    "records_per_s": len(index) / dt, "stages_s": stage,
+                    "decoder_members": members, **decoders}
+    out["launches"]["digest_sig (build)"] = must_launch(
+        "digest_sig in the mixed-codec build", ds.launches)
+    log(f"[codecs] (b) build_index over {len(codecs)} shards ({', '.join(codecs)}"
+        f") x {rows[0].size} records: {dt:.3f} s = {len(index) / dt:.1f} "
+        f"records/s; stages (s): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stage.items())
+        + f"; {ds.launches} digest_sig launches; rtype/status/uncomp_len/"
+        f"digest/signatures/URI/MIME equal across the shards; every digest "
+        f"== zlib.adler32; {members} gzip/LZ4 members decoded in child "
+        f"processes ({decoders})")
+    return index
+
+
+def codec_search(index: CdxIndex, paths: list[str], out: dict) -> dict:
+    """Phase 13 (c): phase 6's requests over the mixed index; each hit
+    list equal to the oracle, and equal across the shards record by
+    record. Returns ``label -> {(shard, offset): matches}``."""
+    rows = shard_rows(index)
+    ordinal = {(index.shard_paths[s], int(index.offset[i])): (s, k)
+               for s, r in enumerate(rows) for k, i in enumerate(r)}
+    reqs = [QueryRequest(r.pattern, r.filters, top_k=len(index),
+                         regex=r.regex) for _, r in REQUESTS]
+    ps.launches = 0
+    t0 = time.perf_counter()
+    with IndexQueryService(index, device="cuda") as svc:
+        responses = svc.serve(reqs)
+        masks = [None if r.filters is None
+                 else svc.engine.header_mask(r.filters) for r in reqs]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    hits = {}
+    for (label, _), req, mask, resp in zip(REQUESTS, reqs, masks, responses):
+        # the records are the same in every shard: the oracle of the
+        # uncompressed shard, by record ordinal, stands for all four
+        scan = (full_scan_regex if req.regex else full_scan_search)(
+            paths[:1], req.pattern)
+        want = {ordinal[k][1]: v for k, v in scan.items()
+                if mask is None or mask[rows[0][ordinal[k][1]]]}
+        got = {(h.shard, h.offset): h.n_matches for h in resp.hits}
+        per = [{} for _ in rows]
+        for key, n in got.items():
+            s, k = ordinal[key]
+            per[s][k] = n
+        if any(p != want for p in per) or \
+                resp.total_matches != len(rows) * len(want):
+            raise RuntimeError(f"codecs (c) {label!r}: per-shard hits "
+                               f"{[len(p) for p in per]} != the "
+                               f"{len(want)}-record oracle")
+        hits[label] = got
+        log(f"[codecs] (c) {label} {req.pattern!r}: {len(want)} records in "
+            f"each of the {len(rows)} shards == oracle, "
+            f"{resp.latency_s * 1e3:.3f} ms")
+    out["search"] = {"seconds": dt, "requests": len(reqs),
+                     "hits": {k: len(v) for k, v in hits.items()}}
+    out["launches"]["pattern_scan (search)"] = must_launch(
+        "pattern_scan_batch in the mixed-codec search", ps.launches)
+    log(f"[codecs] (c) {len(reqs)} requests in {dt:.3f} s; {ps.launches} "
+        f"pattern_scan_batch launches")
+    return hits
+
+
+def codec_verify(index: CdxIndex, codecs: tuple, out: dict) -> None:
+    """Phase 13 (d): ``verify_index`` on the card, all True; then one LZ4
+    and one zstd digest flipped, exactly those rows False."""
+    ad.launches = 0
+    t0 = time.perf_counter()
+    ok = verify_index(index, device="cuda")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if not all(ok):
+        raise RuntimeError(f"codecs (d): {ok.count(False)} rows fail verify")
+    rows = shard_rows(index)
+    rng = np.random.default_rng(SEED)
+    flips = sorted(int(rng.choice(rows[codecs.index(k)]))
+                   for k in ("lz4", "zstd") if k in codecs)
+    index.digest[flips] ^= np.uint32(1)
+    try:
+        bad = [i for i, v in enumerate(verify_index(index, device="cuda"))
+               if not v]
+    finally:
+        index.digest[flips] ^= np.uint32(1)
+    if bad != flips:
+        raise RuntimeError(f"codecs (d): rows {bad} failed, flipped {flips}")
+    out["verify"] = {"records": len(index), "seconds": dt,
+                     "records_per_s": len(index) / dt, "flipped": flips}
+    out["launches"]["adler32 (verify)"] = must_launch(
+        "adler32 in the mixed-codec verify", ad.launches)
+    log(f"[codecs] (d) verify_index over {len(index)} records: all True in "
+        f"{dt:.3f} s = {len(index) / dt:.1f} records/s; flipped digests of "
+        f"rows {flips} ({', '.join(k for k in ('lz4', 'zstd') if k in codecs)}"
+        f"): exactly those False; {ad.launches} adler32 launches")
+
+
+def codec_derive(index: CdxIndex, paths: list[str], codecs: tuple,
+                 hits: dict, workdir: Path, out: dict) -> None:
+    """Phase 13 (e): ``derive`` of the LZ4 and zstd shards on the card,
+    the store's columns equal to (b)'s rows, and one columnar search
+    equal to (c)'s hits."""
+    sub = [p for p, k in zip(paths, codecs) if k in ("lz4", "zstd")]
+    rows = np.flatnonzero(np.isin(index.shard_id, [
+        codecs.index(k) for k in ("lz4", "zstd") if k in codecs]))
+    ds.launches = 0
+    t0 = time.perf_counter()
+    store = derive(sub, str(workdir / "codecs.repcol"), device="cuda")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    derive_launches = ds.launches
+    for col, idx_col in STORE_COLUMNS:
+        if col in ("shard_id", "uri_off", "mime_off"):
+            continue
+        if not np.array_equal(getattr(store, col),
+                              getattr(index, idx_col)[rows]):
+            raise RuntimeError(f"codecs (e): store column {col} != (b)'s")
+    for i, j in enumerate(rows):
+        if store.uri(i) != index.uri(j) or store.mime(i) != index.mime(j):
+            raise RuntimeError(f"codecs (e): store row {i}: URI or MIME != "
+                               f"(b)'s")
+    label, req = REQUESTS[0]
+    ps.rowgroup_launches = 0
+    engine = QueryEngine.from_store(store, device="cuda")
+    with IndexQueryService(engine.index, engine=engine) as svc:
+        (resp,) = svc.serve([QueryRequest(req.pattern, top_k=len(store))])
+    torch.cuda.synchronize()
+    got = {(h.shard, h.offset): h.n_matches for h in resp.hits}
+    want = {k: v for k, v in hits[label].items() if k[0] in sub}
+    if got != want or not got:
+        raise RuntimeError(f"codecs (e): columnar {label!r} gave {len(got)} "
+                           f"hits, (c) {len(want)}")
+    del engine, svc
+    gc.collect()
+    store.close()
+    out["derive"] = {"records": int(rows.size), "seconds": dt,
+                     "records_per_s": rows.size / dt,
+                     "columnar_hits": len(got)}
+    out["launches"]["digest_sig (derive)"] = must_launch(
+        "digest_sig in the LZ4/zstd derive", derive_launches)
+    out["launches"]["pattern_scan_rowgroup (columnar search)"] = must_launch(
+        "pattern_scan_rowgroup in the LZ4/zstd columnar search",
+        ps.rowgroup_launches)
+    log(f"[codecs] (e) derive of the LZ4 and zstd shards: {rows.size} "
+        f"records in {dt:.3f} s; columns and heaps == (b)'s rows; "
+        f"{derive_launches} digest_sig launches; columnar {label} "
+        f"{req.pattern!r}: {len(got)} hits == (c)'s; "
+        f"{ps.rowgroup_launches} pattern_scan_rowgroup launches")
+
+
+def record_ids(path: str, **kw) -> list[bytes]:
+    return [rec.header_bytes(b"WARC-Record-ID:")
+            for rec in FastWARCIterator(path, parse_http=False, **kw)]
+
+
+def codec_tolerant(index: CdxIndex, paths: list[str], codecs: tuple,
+                   workdir: Path, out: dict) -> None:
+    """Phase 13 (f): ``build_index(tolerant=True)`` on the card over
+    damaged copies of the gzip and the LZ4 shard; every surviving row
+    equal to the intact index's row of the same record ID."""
+    rows = shard_rows(index)
+    damaged, intact, spans = [], [], 0
+    for comp in ("gzip", "lz4"):
+        s = codecs.index(comp)
+        with open(paths[s], "rb") as f:
+            bad, hit = corrupt_warc(f.read(), **DAMAGE)
+        p = workdir / f"damaged.{comp}.warc"
+        p.write_bytes(bad)
+        damaged.append(str(p))
+        intact.append(s)
+        spans += len(hit)
+    ds.launches = 0
+    t0 = time.perf_counter()
+    got = build_index(damaged, tolerant=True, device="cuda")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if not got.errors:
+        raise RuntimeError("codecs (f): the tolerant build ledgered nothing")
+    for t, (s, path) in enumerate(zip(intact, damaged)):
+        want_ids = record_ids(paths[s])
+        row_of_id = {rid: rows[s][k] for k, rid in enumerate(want_ids)}
+        trows = np.flatnonzero(got.shard_id == t)
+        ids = record_ids(path, tolerant=True)
+        if len(ids) != trows.size or not trows.size or \
+                trows.size >= len(want_ids):
+            raise RuntimeError(f"codecs (f): {trows.size} rows for "
+                               f"{len(ids)} surviving records")
+        want = np.asarray([row_of_id[rid] for rid in ids])
+        for name in CDX_COLUMNS:
+            if name in ("shard_id", "comp_len", "uri_off", "mime_off"):
+                continue  # the heaps are compared record by record below
+            a, b = getattr(got, name), getattr(index, name)
+            if not np.array_equal(a[trows], b[want]):
+                raise RuntimeError(f"codecs (f) {codecs[s]}: column {name} "
+                                   f"of a surviving row != the intact row")
+        # comp_len runs to the next indexed record: over a lost member
+        # it spans the lost bytes too
+        ends = np.append(index.offset[want][1:],
+                         np.uint64(os.path.getsize(path)))
+        if not np.array_equal(got.comp_len[trows],
+                              ends - index.offset[want]):
+            raise RuntimeError(f"codecs (f) {codecs[s]}: comp_len != the "
+                               f"distance to the next surviving record")
+        for i, j in zip(trows, want):
+            if got.uri(i) != index.uri(j) or got.mime(i) != index.mime(j):
+                raise RuntimeError(f"codecs (f): row {i}: URI or MIME != "
+                                   f"the intact row's")
+    left = glob.glob(f"/dev/shm/{SHM_PREFIX}-*")
+    if left:
+        raise RuntimeError(f"codecs (f): shared-memory segments left: {left}")
+    ledger = {}
+    for e in got.errors:
+        ledger[e.error_class] = ledger.get(e.error_class, 0) + 1
+    out["tolerant"] = {"records": len(got), "seconds": dt,
+                       "damaged_members": spans, "ledger": ledger}
+    out["launches"]["digest_sig (tolerant build)"] = must_launch(
+        "digest_sig in the tolerant build", ds.launches)
+    log(f"[codecs] (f) tolerant build over the damaged gzip and LZ4 shards "
+        f"({spans} members garbled): {len(got)} rows in {dt:.3f} s, ledger "
+        f"{ledger}; every surviving row == the intact row of its record ID "
+        f"(comp_len: up to the next surviving record); "
+        f"{ds.launches} digest_sig launches; /dev/shm/{SHM_PREFIX}-* left: "
+        f"none")
+
+
+def codec_phase(workdir: Path, results: dict) -> None:
+    """Phase 13: LZ4, zstd and uncompressed shards beside gzip — the
+    paper's Table 1 on this host, then a mixed-codec build, search,
+    verify, derive and tolerant build on the card."""
+    t_phase = time.perf_counter()
+    codecs = ("none", "gzip", "lz4")
+    if have_zstandard():
+        codecs += ("zstd",)
+    else:
+        log("[codecs] zstandard does not import on this host: the zstd "
+            "shard and Table 1's zstd cells are left out (a host codec; "
+            "the device path is the same)")
+    out: dict = {"codecs": list(codecs), "launches": {}}
+    out["table1"] = table1(codecs)
+    d = workdir / "codecs"
+    d.mkdir(parents=True, exist_ok=True)
+    paths, sizes = [], {}
+    t0 = time.perf_counter()
+    for comp in codecs:
+        p = d / f"mixed.{comp}.warc"
+        p.write_bytes(generate_warc(CODEC_SPEC, comp))
+        paths.append(str(p))
+        sizes[comp] = p.stat().st_size
+    out["write_s"] = time.perf_counter() - t0
+    log(f"[codecs] (b) corpus CorpusSpec(n_pages={CODEC_SPEC.n_pages}, "
+        f"seed={CODEC_SPEC.seed}) written once per codec in "
+        f"{out['write_s']:.3f} s; bytes {sizes}")
+    out["bytes"] = sizes
+    index = codec_build(paths, codecs, out)
+    hits = codec_search(index, paths, out)
+    codec_verify(index, codecs, out)
+    codec_derive(index, paths, codecs, hits, d, out)
+    codec_tolerant(index, paths, codecs, d, out)
+    out["phase_s"] = time.perf_counter() - t_phase
+    results["codecs"] = out
+    log(f"[codecs] phase 13 in {out['phase_s']:.3f} s; launches "
+        f"{out['launches']}")
+
+
 def timed_err(name: str, kernel, plain) -> int:
     """max |kernel - plain| on the inputs the kernels line times; raises
     unless the two agree exactly."""
@@ -2273,11 +2709,16 @@ def kernel_line(results: dict, store: ColumnStore) -> dict:
     # flash_attention: phase 4's prefill case heads the entry, every case
     # beside it, each checked on the inputs it was timed on
     fl = results["flash"]["prefill"]
+    codec = results["codecs"]["launches"]
     return {"floor": floor, "kernels": [
         {"name": "pattern_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/pattern_scan/csrc/pattern_scan.cu",
          "replaces": "src/repro/kernels/pattern_scan/pattern_scan.py:122",
-         "launches": results["pattern_scan_launches"],
+         "launches": (results["pattern_scan_launches"]
+                      + codec["pattern_scan (search)"]),
+         "launches_by_phase": {
+             "serve": results["pattern_scan_launches"],
+             "codecs search": codec["pattern_scan (search)"]},
          "max_abs_err": err["pattern_scan"],
          "ms": ms, "plain_ms": plain, "bound_ms": b_scan,
          "bound_by": by_scan, "library_ms": None,
@@ -2293,7 +2734,10 @@ def kernel_line(results: dict, store: ColumnStore) -> dict:
                       + results["derive_digest_sig_launches"]
                       + results["verify_digest_sig_launches"]
                       + results["pool_digest_sig_launches"]
-                      + results["pool_derive_digest_sig_launches"]),
+                      + results["pool_derive_digest_sig_launches"]
+                      + codec["digest_sig (build)"]
+                      + codec["digest_sig (derive)"]
+                      + codec["digest_sig (tolerant build)"]),
          "max_abs_err": err["digest_sig"],
          "ms": dms, "plain_ms": dplain, "bound_ms": b_dig,
          "bound_by": by_dig, "library_ms": None,
@@ -2305,11 +2749,19 @@ def kernel_line(results: dict, store: ColumnStore) -> dict:
              "verify": results["verify_digest_sig_launches"],
              "pool build (in the workers)":
                  results["pool_digest_sig_launches"],
-             "pool derive": results["pool_derive_digest_sig_launches"]}},
+             "pool derive": results["pool_derive_digest_sig_launches"],
+             "codecs build": codec["digest_sig (build)"],
+             "codecs derive": codec["digest_sig (derive)"],
+             "codecs tolerant build": codec["digest_sig (tolerant build)"]}},
         {"name": "pattern_scan_rowgroup", "route": "cuda",
          "source": "src/repro_torch/kernels/pattern_scan/csrc/pattern_scan.cu",
          "replaces": "src/repro/kernels/pattern_scan/pattern_scan.py:185",
-         "launches": results["rowgroup_launches"],
+         "launches": (results["rowgroup_launches"]
+                      + codec["pattern_scan_rowgroup (columnar search)"]),
+         "launches_by_phase": {
+             "columnar serve": results["rowgroup_launches"],
+             "codecs columnar search":
+                 codec["pattern_scan_rowgroup (columnar search)"]},
          "max_abs_err": err["pattern_scan_rowgroup"],
          "ms": gms, "plain_ms": gplain, "bound_ms": b_grp,
          "bound_by": by_grp, "library_ms": None,
@@ -2342,7 +2794,11 @@ def kernel_line(results: dict, store: ColumnStore) -> dict:
         {"name": "adler32", "route": "cuda",
          "source": "src/repro_torch/kernels/adler32/csrc/adler32.cu",
          "replaces": "src/repro/kernels/adler32/adler32.py:51",
-         "launches": results["adler32_launches"],
+         "launches": (results["adler32_launches"]
+                      + codec["adler32 (verify)"]),
+         "launches_by_phase": {
+             "verify": results["adler32_launches"],
+             "codecs verify": codec["adler32 (verify)"]},
          "max_abs_err": err["adler32"],
          "ms": ams, "plain_ms": aplain, "bound_ms": b_ad,
          "bound_by": by_ad, "library_ms": None,
@@ -2421,6 +2877,8 @@ def main() -> int:
     gateway_phase(index, checked, results)
     rowgroup_multi_phase(store, results)
     lm_phase(paths, results)
+    codec_phase(workdir, results)
+    codec = results["codecs"]["launches"]
 
     launches = {"digest_sig (build)": results["digest_sig_launches"],
                 "pattern_scan (serve)": results["pattern_scan_launches"],
@@ -2441,7 +2899,8 @@ def main() -> int:
                 "flash_attention (LM prefill)":
                     results["lm"]["flash_launches"]["prefill"],
                 "flash_attention (LM engine)":
-                    results["lm"]["flash_launches"]["engine"]}
+                    results["lm"]["flash_launches"]["engine"],
+                **{f"{k}, codecs": v for k, v in codec.items()}}
     log(f"[launches] main paths: {launches}")
     if min(launches.values()) <= 0:
         raise RuntimeError("a kernel of a main path was never launched")

@@ -1,7 +1,8 @@
 """Derivation pipeline: parse a WARC corpus once → columnar shards.
 
 ``derive()`` sweeps every source shard exactly once with the zero-copy
-parser (gzip members inflate on a decoder thread ahead of the parse),
+parser (gzip and LZ4 members inflate in a decoder child process, or on
+a thread, ahead of the parse),
 and everything a query will ever touch comes out the other side as
 :mod:`repro_torch.columnar.store` columns —
 
@@ -24,6 +25,7 @@ derive of the same corpus.
 from __future__ import annotations
 
 import calendar
+import functools
 import os
 import time
 
@@ -58,12 +60,13 @@ def parse_warc_date(raw: bytes | None) -> int:
         return 0
 
 
-def _extract_shard(path: str) -> dict:
+def _extract_shard(path: str, *, readahead: bool | None = None,
+                   tolerant: bool = False) -> dict:
     """Single sweep of one shard → column partial.
 
     Same iterator, per-record fields and row order as the CDX build's
     sweep, but carries the payload bytes out instead of digesting them in
-    place. Content is appended to one buffer immediately, so the borrowed
+    place; with ``tolerant`` the sweep's damage ledger rides along. Content is appended to one buffer immediately, so the borrowed
     arena views never outlive the loop iteration.
     """
     with open(path, "rb") as f:
@@ -78,7 +81,8 @@ def _extract_shard(path: str) -> dict:
     mime_parts: list[bytes] = []
     uri_off = [0]
     mime_off = [0]
-    it = FastWARCIterator(path, parse_http=True)
+    it = FastWARCIterator(path, parse_http=True, readahead=readahead,
+                          tolerant=tolerant)
     try:
         for record in it:
             offsets.append(record.stream_offset)
@@ -112,13 +116,15 @@ def _extract_shard(path: str) -> dict:
         "uri_off": np.asarray(uri_off, np.uint64),
         "mime_heap": b"".join(mime_parts),
         "mime_off": np.asarray(mime_off, np.uint64),
+        "errors": list(it.error_ledger.entries()) if tolerant else [],
     }
 
 
 def derive(paths, out_path: str, *, workers: int = 0,
            sig_bits: int = SIG_BITS, sig_ngram: int = SIG_NGRAM,
-           sig_hashes: int = SIG_HASHES, tolerant: bool = False,
-           supervise: bool = False, device="cuda") -> ColumnStore:
+           sig_hashes: int = SIG_HASHES, readahead: bool | None = None,
+           tolerant: bool = False, supervise: bool = False,
+           device="cuda") -> ColumnStore:
     """Derive columnar shards from a WARC corpus; returns the opened store.
 
     One parser sweep per source shard (``workers > 0`` fans the sweeps
@@ -130,15 +136,15 @@ def derive(paths, out_path: str, *, workers: int = 0,
     pack_write}_us`` beside ``derive.records`` / ``derive.payload_bytes``
     / ``derive.rowgroups``.
 
-    ``supervise`` (with ``workers > 0``) retries worker deaths; a shard
-    that keeps killing workers is dropped and reported as one
-    ``shard_quarantined`` :class:`~repro_torch.core.warc.errors.
-    LedgerEntry` on ``store.errors``. The store carries the merged
-    observability snapshot of the sweep on ``store.obs``.
-
-    ``tolerant`` (the recovering parser) raises ``NotImplementedError``,
-    and so do LZ4 and zstd shards, from the parser. A signature geometry
-    the kernel does not cover raises ``ValueError``.
+    ``readahead`` goes to the parser. ``tolerant`` sweeps in recovery
+    mode: damaged records are resynced past and every skipped byte range
+    is reported on ``store.errors``. ``supervise`` (with ``workers > 0``)
+    retries worker deaths; a shard that keeps killing workers is dropped
+    and reported there too, as one ``shard_quarantined``
+    :class:`~repro_torch.core.warc.errors.LedgerEntry`; entries come in
+    shard order. The store carries the merged observability snapshot of
+    the sweep on ``store.obs``. A signature geometry the kernel does not
+    cover raises ``ValueError``.
     """
     from repro_torch import obs
     from repro_torch._device import resolve_device
@@ -147,15 +153,14 @@ def derive(paths, out_path: str, *, workers: int = 0,
     from repro_torch.kernels.digest_sig.ops import (_sig_geometry,
                                                     digest_signature_rowgroup)
 
-    if tolerant:
-        raise NotImplementedError("tolerant derive is not ported yet "
-                                  "(ROADMAP: tolerant parsing)")
     _sig_geometry(sig_bits, sig_ngram, sig_hashes)
     dev = resolve_device(device)
     reg = obs.registry()
     paths = [str(p) for p in paths]
     t0 = time.perf_counter()
-    partials, obs_snap = map_shards(_extract_shard, paths, workers=workers,
+    sweep = functools.partial(_extract_shard, readahead=readahead,
+                              tolerant=tolerant)
+    partials, obs_snap = map_shards(sweep, paths, workers=workers,
                                     supervise=supervise, with_obs=True)
     t_parse = time.perf_counter()
     errors: list = []
@@ -171,6 +176,7 @@ def derive(paths, out_path: str, *, workers: int = 0,
                 bytes_skipped=size,
                 message="shard repeatedly killed derive workers"))
             continue
+        errors.extend(part["errors"])
         parts.append(part)
     if not parts:
         raise ValueError("nothing to derive")

@@ -1,18 +1,22 @@
-"""WARC writer: serialize records, one gzip member per record.
+"""WARC writer: serialize records with per-record compression members.
 
-Writes the member-per-record layout all WARC tooling expects, so readers
-can random-access and skip at record granularity. Covers uncompressed
-and gzip output.
+Writes the member-per-record layout all WARC tooling expects (gzip member,
+LZ4 frame, or zstd frame per record) so readers can random-access and skip
+at record granularity. Also home of the **recompression** tool from the
+paper's conclusion: "recompressing GZip WARCs with LZ4 is certainly an
+option to be considered".
 """
 from __future__ import annotations
 
+import io
 import uuid
 import zlib
 from datetime import datetime, timezone
 from typing import BinaryIO
 
+from . import lz4 as _lz4
 from .checksum import block_digest
-from .record import CRLF, WarcHeaderMap
+from .record import CRLF, WarcHeaderMap, WarcRecord, WarcRecordType
 
 _WARC_VERSION = b"WARC/1.1"
 
@@ -52,17 +56,23 @@ def serialize_record(
 
 
 class WarcWriter:
-    """Streaming writer, uncompressed or one gzip member per record."""
+    """Streaming writer with selectable per-record compression."""
 
-    def __init__(self, sink: BinaryIO, compression: str = "none") -> None:
-        if compression in ("lz4", "zstd"):
-            raise NotImplementedError(
-                f"{compression} output is not ported yet (ROADMAP: LZ4, "
-                f"zstd and xxh32 streams)")
-        if compression not in ("none", "gzip"):
+    def __init__(self, sink: BinaryIO, compression: str = "none",
+                 *, lz4_content_checksum: bool = False) -> None:
+        if compression not in ("none", "gzip", "lz4", "zstd"):
             raise ValueError(f"unknown compression {compression!r}")
+        self._zctx = None
+        if compression == "zstd":
+            # imported here: every other codec runs without zstandard
+            try:
+                import zstandard as _zstd
+            except ImportError as exc:
+                raise RuntimeError("zstandard not available") from exc
+            self._zctx = _zstd.ZstdCompressor(level=1)
         self._sink = sink
         self.compression = compression
+        self._lz4_chk = lz4_content_checksum
         self.records_written = 0
         self.bytes_written = 0
 
@@ -70,6 +80,10 @@ class WarcWriter:
         if self.compression == "gzip":
             co = zlib.compressobj(6, zlib.DEFLATED, 31)
             out = co.compress(raw) + co.flush()
+        elif self.compression == "lz4":
+            out = _lz4.compress_frame(raw, content_checksum=self._lz4_chk)
+        elif self.compression == "zstd":
+            out = self._zctx.compress(raw)
         else:
             out = raw
         self._sink.write(out)
@@ -81,3 +95,46 @@ class WarcWriter:
                      *, digests: bool = False) -> None:
         self.write_serialized(
             serialize_record(record_type, content, headers, digests=digests))
+
+    def write_warcinfo(self, fields: dict[str, str] | None = None) -> None:
+        body = b"".join(
+            f"{k}: {v}\r\n".encode("utf-8")
+            for k, v in (fields or {"software": "repro-fastwarc/0.1"}).items())
+        self.write_record("warcinfo", body,
+                          {"Content-Type": "application/warc-fields"})
+
+
+def reserialize(record: WarcRecord) -> bytes:
+    """Re-serialize a parsed record verbatim (headers preserved in order)."""
+    out = bytearray(record.headers.status_line + CRLF)
+    for name, value in record.headers.items_bytes():
+        out += name + b": " + value + CRLF
+    out += CRLF
+    out += record.content
+    out += CRLF + CRLF
+    return bytes(out)
+
+
+def recompress(src_path: str, dst_path: str, compression: str = "lz4") -> dict:
+    """GZip→LZ4 (or →zstd) recompression — the paper's concluding advice.
+
+    Returns size/ratio statistics so callers can check the paper's claimed
+    30–40 % LZ4 storage overhead versus GZip.
+    """
+    from .fastwarc import FastWARCIterator  # late import: avoid cycle
+
+    in_size = 0
+    with open(src_path, "rb") as f:
+        f.seek(0, io.SEEK_END)
+        in_size = f.tell()
+    with open(src_path, "rb") as src, open(dst_path, "wb") as dst:
+        writer = WarcWriter(dst, compression)
+        for record in FastWARCIterator(src, parse_http=False,
+                                       record_types=WarcRecordType.any_type):
+            writer.write_serialized(reserialize(record))
+    return {
+        "records": writer.records_written,
+        "input_bytes": in_size,
+        "output_bytes": writer.bytes_written,
+        "size_ratio": writer.bytes_written / max(in_size, 1),
+    }

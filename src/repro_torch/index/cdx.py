@@ -23,10 +23,15 @@ process pool (:func:`repro_torch.core.parallel.map_shards`).
 parses exactly one record; :func:`verify_index` re-reads every indexed
 record and checks its stored digest (and optionally its signature) in
 batched kernel launches. ``offset`` is the absolute position in the
-compressed file for gzip members and in the raw file for uncompressed
-WARCs. The ``.cdx`` byte format is the reference package's v2 format,
-byte for byte; its zstd frame columns (``frame_off``/``frame_base``) are
-an identity copy of ``offset`` for gzip and uncompressed shards.
+*addressable* stream: the compressed file for gzip/LZ4 members, the raw
+file for uncompressed WARCs, and the decompressed stream for zstd. zstd
+rows additionally store the compressed offset of the frame containing
+the record and that frame's decompressed base (walked without
+decompression at build time, :mod:`repro_torch.core.warc.zstd_frames`),
+so random access seeks to the containing frame and decompresses only
+from there; for member formats the two frame columns are an identity
+copy of ``offset``. The ``.cdx`` byte format is the reference package's
+v2 format, byte for byte.
 """
 from __future__ import annotations
 
@@ -47,7 +52,8 @@ from repro_torch.core.warc.record import (
     WarcRecord,
     WarcRecordType,
 )
-from repro_torch.core.warc.streams import detect_compression
+from repro_torch.core.warc.streams import (ForwardWindow, ZstdStream,
+                                           detect_compression)
 from .signature import SIG_BITS, SIG_HASHES, SIG_NGRAM, signature_of
 
 __all__ = ["CdxEntry", "CdxIndex", "NO_FRAME", "RandomAccessReader",
@@ -194,6 +200,14 @@ class CdxIndex:
                 [self.mime(i) for i in range(len(self))], dtype=np.bytes_)
         return self._mimes
 
+    def frame_hint(self, i: int) -> tuple[int, int] | None:
+        """``(frame_off, frame_base)`` for seek-to-frame reads of row ``i``,
+        or ``None`` when no usable mapping is stored (legacy indexes)."""
+        fo = int(self.frame_off[i])
+        if np.uint64(fo) == NO_FRAME:
+            return None
+        return fo, int(self.frame_base[i])
+
     def entry(self, i: int) -> CdxEntry:
         i = int(i)
         sid = int(self.shard_id[i])
@@ -338,6 +352,39 @@ class CdxIndex:
 # Builder
 # --------------------------------------------------------------------------
 
+def _record_span(record: WarcRecord) -> int:
+    """Serialized record length in the decompressed stream (zstd tail)."""
+    hdr = record._header_block  # raw block kept by the lazy-header parser
+    hdr_len = len(hdr) if hdr else sum(
+        len(n) + len(v) + 4 for n, v in record.headers.items_bytes()) + len(
+            record.headers.status_line) + 2
+    return hdr_len + 4 + record.content_length + 4
+
+
+def _frame_columns(path: str, off: np.ndarray
+                   ) -> tuple[np.ndarray, np.ndarray]:
+    """Map each record's decompressed offset of a zstd shard onto the
+    compressed frame containing it: ``(frame_off, frame_base)``, or
+    ``NO_FRAME`` rows when the frames cannot be walked."""
+    import mmap
+
+    from repro_torch.core.warc.zstd_frames import frame_table
+
+    try:
+        with open(path, "rb") as f, \
+                mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ) as mm:
+            # the walk touches a few bytes per block header; mmap keeps
+            # it O(1) resident even for multi-GB shards
+            comp_offs, bases = frame_table(mm)
+        which = np.searchsorted(bases, off, side="right") - 1
+        return comp_offs[which], bases[which]
+    except (ValueError, RuntimeError):
+        # unwalkable frames: the index stays usable, reads fall back to
+        # the decompress-whole-shard path
+        return (np.full(off.size, NO_FRAME, np.uint64),
+                np.full(off.size, NO_FRAME, np.uint64))
+
+
 _FUSED_BATCH = 512             # records per fused-kernel flush
 _FUSED_BATCH_BYTES = 32 << 20  # …or payload bytes, whichever trips first:
                                # pending borrowed views pin their arenas and
@@ -355,6 +402,7 @@ def _fused_supported(sig_bits: int, sig_ngram: int) -> bool:
 
 def _index_shard(path: str, *, sig_bits: int, sig_ngram: int,
                  sig_hashes: int, fused: bool = True,
+                 readahead: bool | None = None, tolerant: bool = False,
                  device="cuda") -> CdxIndex:
     """One-pass sweep of one shard into a single-shard partial index
     (module-level: a pool worker runs it, under spawn too).
@@ -368,10 +416,14 @@ def _index_shard(path: str, *, sig_bits: int, sig_ngram: int,
     batch matrix by the flush, before the pins are released.
     ``fused=False``: the host path, ``zlib.adler32`` and
     :func:`~repro_torch.index.signature.signature_of` per record; the
-    columns are bit-identical either way.
+    columns are bit-identical either way. ``readahead`` and ``tolerant``
+    go to the :class:`~repro_torch.core.warc.FastWARCIterator`; with
+    ``tolerant`` the sweep's damage ledger rides the partial back on its
+    ``errors``.
 
     Publishes per-stage wall time to the process obs registry
-    (``index.stage.parse_us`` / ``digest_sig_us`` / ``assemble_us``).
+    (``index.stage.parse_us`` / ``digest_sig_us`` / ``frame_walk_us`` /
+    ``assemble_us``).
     """
     from repro_torch import obs
     from repro_torch._device import resolve_device
@@ -396,6 +448,7 @@ def _index_shard(path: str, *, sig_bits: int, sig_ngram: int,
     mime_parts: list[bytes] = []
     uri_off = [0]
     mime_off = [0]
+    last_span = 0
 
     def flush() -> None:
         nonlocal pending_bytes, t_sig
@@ -408,8 +461,10 @@ def _index_shard(path: str, *, sig_bits: int, sig_ngram: int,
         pending.clear()  # releases the arena pins
         pending_bytes = 0
 
-    # gzip members inflate on a decoder thread ahead of this loop
-    it = FastWARCIterator(path, parse_http=True)
+    # gzip members (and unfiltered LZ4 frames) inflate in a decoder
+    # child process, or on a thread, ahead of this loop
+    it = FastWARCIterator(path, parse_http=True, readahead=readahead,
+                          tolerant=tolerant)
     try:
         for record in it:
             offsets.append(record.stream_offset)
@@ -441,21 +496,31 @@ def _index_shard(path: str, *, sig_bits: int, sig_ngram: int,
             mime_parts.append(mime)
             uri_off.append(uri_off[-1] + len(uri))
             mime_off.append(mime_off[-1] + len(mime))
+            last_span = _record_span(record)
         if pending:
             flush()
     finally:
         it.close()  # a failed sweep must still join the decoder thread
     t_parse = time.perf_counter() - t_sweep0 - t_sig
-    t_assemble0 = time.perf_counter()
+    t_frame0 = time.perf_counter()
     n = len(offsets)
     off = np.asarray(offsets, np.uint64)
     # comp_len = distance to the next record in the addressable stream;
-    # the tail record ends at the file size
+    # the tail record ends at the file size (member formats) or at its
+    # own serialized span (zstd: the addressable space is the
+    # decompressed stream, whose length the file size says nothing about)
     if n:
-        end = np.uint64(os.path.getsize(path))
+        end = (off[-1] + np.uint64(last_span)) if kind == "zstd" \
+            else np.uint64(os.path.getsize(path))
         comp = np.diff(np.concatenate([off, [end]])).astype(np.uint64)
     else:
         comp = np.empty(0, np.uint64)
+    # member formats address the compressed stream, so a record's
+    # "frame" is itself; zstd rows map onto their compressed frame
+    frame_off, frame_base = off.copy(), off.copy()
+    if kind == "zstd" and n:
+        frame_off, frame_base = _frame_columns(path, off)
+    t_assemble0 = time.perf_counter()
     if not sigs:
         digest_col = np.empty(0, np.uint32)
         sig_col = np.empty((0, sig_bits // 64), np.uint64)
@@ -474,10 +539,8 @@ def _index_shard(path: str, *, sig_bits: int, sig_ngram: int,
         "status": np.asarray(statuses, np.int16),
         "digest": digest_col,
         "signatures": sig_col,
-        # member formats address the compressed stream: a record's
-        # "frame" is itself
-        "frame_off": off.copy(),
-        "frame_base": off.copy(),
+        "frame_off": frame_off,
+        "frame_base": frame_base,
         "uri_off": np.asarray(uri_off, np.uint64),
         "mime_off": np.asarray(mime_off, np.uint64),
     }
@@ -489,14 +552,21 @@ def _index_shard(path: str, *, sig_bits: int, sig_ngram: int,
     reg.counter_add("index.records", n)
     reg.counter_add("index.stage.parse_us", int(t_parse * 1e6))
     reg.counter_add("index.stage.digest_sig_us", int(t_sig * 1e6))
+    reg.counter_add("index.stage.frame_walk_us",
+                    int((t_assemble0 - t_frame0) * 1e6))
     reg.counter_add("index.stage.assemble_us",
                     int((time.perf_counter() - t_assemble0) * 1e6))
+    if tolerant:
+        # the damage ledger rides the (picklable) partial back to the
+        # build_index parent, across the worker process boundary
+        out.errors = list(it.error_ledger.entries())
     return out
 
 
 def build_index(paths, *, workers: int = 0, sig_bits: int = SIG_BITS,
                 sig_ngram: int = SIG_NGRAM, sig_hashes: int = SIG_HASHES,
-                fused: bool | None = None, supervise: bool = False,
+                fused: bool | None = None, readahead: bool | None = None,
+                tolerant: bool = False, supervise: bool = False,
                 device="cuda") -> CdxIndex:
     """Index a sharded corpus: one parser sweep per shard, merged in
     shard order; the columns are bit-identical to the reference
@@ -518,7 +588,15 @@ def build_index(paths, *, workers: int = 0, sig_bits: int = SIG_BITS,
     built first, in this process, and the workers are started with
     ``forkserver`` or ``spawn``, never ``fork``.
 
-    ``supervise`` (with ``workers > 0``) retries worker deaths; a shard
+    ``readahead`` (default auto) runs member decompression ahead of each
+    sweep: in a forked decoder child for serial sweeps, on a thread in
+    pool workers (daemonic processes may not fork).
+
+    ``tolerant`` sweeps each shard in recovery mode: damaged records are
+    resynced past instead of aborting the build, and every skipped byte
+    range is reported on the returned index's ``errors`` list
+    (:class:`~repro_torch.core.warc.errors.LedgerEntry` rows, in shard
+    order). ``supervise`` (with ``workers > 0``) retries worker deaths; a shard
     that keeps killing workers is dropped from the merge and reported as
     one ``shard_quarantined`` :class:`~repro_torch.core.warc.errors.
     LedgerEntry` on the returned index's ``errors``. The index carries
@@ -548,7 +626,8 @@ def build_index(paths, *, workers: int = 0, sig_bits: int = SIG_BITS,
         build_all()  # once, here: the workers only load the libraries
     sweep = functools.partial(_index_shard, sig_bits=sig_bits,
                               sig_ngram=sig_ngram, sig_hashes=sig_hashes,
-                              fused=fused,
+                              fused=fused, readahead=readahead,
+                              tolerant=tolerant,
                               device=device if cuda_workers else dev)
     paths = [str(p) for p in paths]
     partials, obs_snap = map_shards(sweep, paths, workers=workers,
@@ -583,7 +662,13 @@ class RandomAccessReader:
 
     The shard is opened once; every :meth:`read` is one seek + one member
     decode + one record parse — cost independent of archive size.
-    ``verify_digests=True`` checks each read record's WARC digest headers
+    zstd shards have no compressed-domain member boundaries; when the
+    caller supplies a ``frame`` hint (the v2 CDX stores one per record,
+    see :meth:`CdxIndex.frame_hint`), the reader seeks straight to the
+    containing compressed frame and decompresses only from there —
+    without a hint it decompresses the stream once on first access
+    (reads then become in-memory seeks). ``verify_digests=True`` checks
+    each read record's WARC digest headers
     (``WarcRecord.verified_block_digest`` / ``verified_payload_digest``).
     """
 
@@ -593,23 +678,42 @@ class RandomAccessReader:
         self._f = open(path, "rb")
         self.kind = detect_compression(self._f.read(8))
         self._f.seek(0)
-        if self.kind in ("lz4", "zstd"):
-            self._f.close()
-            raise NotImplementedError(
-                f"{self.kind} WARC shards are not ported yet (ROADMAP: "
-                f"LZ4, zstd and xxh32 streams)")
         self._parse_http = parse_http
         self._verify = verify_digests
+        self._zbuf: bytes | None = None
 
-    def read(self, offset: int) -> WarcRecord:
-        """Parse exactly the record starting at ``offset``."""
-        return read_record_at(self._f, int(offset),
+    def read(self, offset: int,
+             frame: tuple[int, int] | None = None) -> WarcRecord:
+        """Parse exactly the record starting at ``offset``.
+
+        ``frame`` — optional ``(frame_off, frame_base)`` pair for zstd
+        shards: the compressed offset of the frame containing the record
+        and that frame's decompressed base. Ignored for member formats
+        (their offsets already address the compressed stream).
+        """
+        source = self._f
+        if self.kind == "zstd":
+            if frame is not None and self._zbuf is None:
+                frame_off, frame_base = frame
+                self._f.seek(int(frame_off))
+                source = ForwardWindow(ZstdStream(self._f),
+                                       base=int(frame_base))
+            else:
+                if self._zbuf is None:
+                    self._f.seek(0)
+                    self._zbuf = ZstdStream(self._f).read()
+                source = io.BytesIO(self._zbuf)
+        return read_record_at(source, int(offset),
                               parse_http=self._parse_http,
                               verify_digests=self._verify, shard=self.path)
+
+    def read_entry(self, entry: CdxEntry) -> WarcRecord:
+        return self.read(entry.offset)
 
     # -- lifecycle -------------------------------------------------------
     def close(self) -> None:
         self._f.close()
+        self._zbuf = None
 
     def __enter__(self) -> "RandomAccessReader":
         return self
@@ -661,7 +765,8 @@ def verify_index(index: CdxIndex, *, limit: int | None = None,
             if reader is None:
                 reader = readers[sid] = RandomAccessReader(
                     index.shard_paths[sid], parse_http=False)
-            datas.append(reader.read(int(index.offset[i])).content)
+            datas.append(reader.read(int(index.offset[i]),
+                                     frame=index.frame_hint(i)).content)
     finally:
         for reader in readers.values():
             reader.close()

@@ -531,7 +531,8 @@ class QueryEngine:
         if reader is None:
             reader = self._readers[sid] = RandomAccessReader(
                 self.index.shard_paths[sid], parse_http=False)
-        return reader.read(int(self.index.offset[row])).content
+        return reader.read(int(self.index.offset[row]),
+                           frame=self.index.frame_hint(row)).content
 
     def make_hit(self, row: int, buf: bytes, positions: np.ndarray,
                  first_len: int) -> PatternHit:

@@ -1,5 +1,18 @@
-"""Test support: deterministic process-fault injection for the pool's
+"""Test support: deterministic byte corruption of WARC images and
+process-fault injection for the pool's and the readahead decoder's
 supervision tests (import-light: no CUDA work, no heavy dependencies)."""
-from .faults import arm_worker_kill
+from .faults import (
+    DamagedSpan,
+    arm_decoder_stall,
+    arm_worker_kill,
+    corrupt_warc,
+    member_spans,
+)
 
-__all__ = ["arm_worker_kill"]
+__all__ = [
+    "DamagedSpan",
+    "arm_decoder_stall",
+    "arm_worker_kill",
+    "corrupt_warc",
+    "member_spans",
+]

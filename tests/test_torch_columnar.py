@@ -152,15 +152,14 @@ def test_derive_repcol_bytes_equal(corpus, ref):
         assert (other.uri_heap, other.mime_heap) == (port.uri_heap,
                                                     port.mime_heap)
         other.close()
-    # the process pool (forked workers, supervised or not) writes the
-    # serial bytes; what the port does not cover raises instead of
-    # degrading
-    for kw in ({"workers": 2}, {"supervise": True}):
-        PC.derive(paths, str(d / "x.repcol"), device="cpu", **kw).close()
+    # the process pool (forked workers, supervised or not) and the
+    # recovering parser over intact shards write the serial bytes
+    for kw in ({"workers": 2}, {"supervise": True}, {"tolerant": True}):
+        store = PC.derive(paths, str(d / "x.repcol"), device="cpu", **kw)
+        assert store.errors == []
+        store.close()
         assert ((d / "x.repcol").read_bytes()
                 == (d / "port.repcol").read_bytes())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PC.derive(paths, str(d / "x.repcol"), device="cpu", tolerant=True)
     with pytest.raises(ValueError):  # a geometry the kernel does not cover
         PC.derive(paths, str(d / "x.repcol"), sig_bits=192, device="cpu")
 

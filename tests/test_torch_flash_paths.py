@@ -68,3 +68,33 @@ def test_plain_attention_head_dims_match_reference(d):
                 err_msg=f"{(b, h, hkv, sq, sk, d)} causal={causal}")
             if causal and sq > sk:
                 assert not got[:, :, :sq - sk].any()
+
+
+def test_plain_attention_ignores_the_fp32_matmul_mode():
+    """The plain version on the CPU does not move with the process's fp32
+    matrix-product mode: the failing case of a whole-suite run
+    ((2, 6, 2, 37, 37), D = 16, causal) stays within 1e-6 of a float64
+    numpy truth under ``set_float32_matmul_precision("medium")``, which
+    routes fp32 products through a reduced-precision path on CPUs that
+    have one (an AMX-BF16 Xeon, where fp32 math fails this)."""
+    rng = np.random.default_rng(16)
+    q = rng.standard_normal((2, 6, 37, 16)).astype(np.float32)
+    k = rng.standard_normal((2, 2, 37, 16)).astype(np.float32)
+    v = rng.standard_normal((2, 2, 37, 16)).astype(np.float32)
+    k64 = np.repeat(k, 3, axis=1).astype(np.float64)
+    v64 = np.repeat(v, 3, axis=1).astype(np.float64)
+    s = q.astype(np.float64) @ k64.swapaxes(-1, -2) / 4.0
+    s = np.where(np.tril(np.ones((37, 37), bool)), s, -np.inf)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    truth = (p / p.sum(-1, keepdims=True)) @ v64
+    prev = torch.get_float32_matmul_precision()
+    try:
+        for mode in ("highest", "medium"):
+            torch.set_float32_matmul_precision(mode)
+            got = attention_plain(*(torch.from_numpy(a) for a in (q, k, v)),
+                                  causal=True)
+            assert got.dtype == torch.float32
+            np.testing.assert_allclose(got.numpy(), truth, rtol=0, atol=1e-6,
+                                       err_msg=mode)
+    finally:
+        torch.set_float32_matmul_precision(prev)

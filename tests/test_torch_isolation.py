@@ -1,8 +1,10 @@
 """``repro_torch`` and ``chip_smoke.py`` run without JAX and without the
 reference package (index build, CDX search, columnar derive and search,
 index verification, the sharded gateway, LM forward and serving, the
-process pool — in its forked and its spawned workers too), and the
-port's entry points default to the GPU."""
+process pool — in its forked and its spawned workers too — and the codec
+slice: LZ4 and zstd shards, the decoder child process, tolerant parsing
+and the WARCIO baseline); every path but zstd's also runs without
+``zstandard``; and the port's entry points default to the GPU."""
 import ast
 import os
 import subprocess
@@ -115,6 +117,30 @@ assert logits.shape == (2, 8, cfg.vocab) and bool(torch.isfinite(logits).all())
 engine = ServeEngine(cfg, params, batch_size=2, max_seq=32, device="cpu")
 done = engine.serve([Request(b"web", max_new_tokens=3), Request(b"x", 2)])
 assert [len(r.out_tokens) for r in done] == [3, 2] and all(r.done for r in done)
+# the codec slice: LZ4 and zstd shards through build, verify and
+# derive, a tolerant build of a damaged shard, the decoder child process
+# and the WARCIO baseline
+from repro_torch import obs
+from repro_torch.core.warc import FastWARCIterator, WARCIOArchiveIterator
+from repro_torch.testing.faults import corrupt_warc
+mixed = [f"{d}/m.{comp}" for comp in ("lz4", "zstd")]
+for p, comp in zip(mixed, ("lz4", "zstd")):
+    write_corpus(p, CorpusSpec(n_pages=3, seed=0), comp)
+mi = build_index(mixed, device="cpu")
+assert np.array_equal(mi.digest, np.concatenate([index.digest[:10]] * 2))
+assert mi.frame_hint(15) is not None and verify_index(mi, device="cpu") \
+    == [True] * 20
+derive(mixed, f"{d}/m.repcol", device="cpu").close()
+with open(paths[0], "rb") as f:
+    bad, spans = corrupt_warc(f.read(), fraction=0.2, seed=0)
+with open(f"{d}/bad.warc.gz", "wb") as f:
+    f.write(bad)
+ti = build_index([f"{d}/bad.warc.gz"], tolerant=True, device="cpu")
+assert ti.errors and len(ti) == 10 - len(spans), (ti.errors, spans)
+obs.reset()
+assert sum(1 for _ in FastWARCIterator(mixed[0])) == 10
+assert obs.snapshot().counter("ingest.readahead.process") == 1
+assert len(list(WARCIOArchiveIterator(paths[0]))) == 10
 # the process pool, its reaper, stats slots and fault injection: forked
 # workers for build and derive, spawned ones for map_shards
 import repro_torch.core.reaper, repro_torch.obs.shmstats
@@ -135,6 +161,72 @@ print("ISOLATED-OK", len(index))
 """
 _BLOCKED_RUN = (_BLOCKER + 'if __name__ == "__main__":\n'
                 + textwrap.indent(_BLOCKED_BODY, "    "))
+
+
+_NO_ZSTD_BODY = r"""
+import tempfile
+from repro_torch import obs
+from repro_torch.columnar import derive
+from repro_torch.core.warc import (FastWARCIterator, WARCIOArchiveIterator,
+                                   WarcWriter)
+from repro_torch.data.synth import CorpusSpec, write_corpus
+from repro_torch.index import build_index, verify_index
+from repro_torch.testing.faults import corrupt_warc
+d = tempfile.mkdtemp()
+paths = [f"{d}/s.{comp}" for comp in ("none", "gzip", "lz4")]
+for p, comp in zip(paths, ("none", "gzip", "lz4")):
+    write_corpus(p, CorpusSpec(n_pages=3, seed=0), comp)
+index = build_index(paths, device="cpu")
+assert len(index) == 30 and all(verify_index(index, device="cpu"))
+derive(paths, f"{d}/c.repcol", device="cpu").close()
+with open(paths[2], "rb") as f:
+    bad, spans = corrupt_warc(f.read(), fraction=0.2, seed=0)
+with open(f"{d}/bad.lz4", "wb") as f:
+    f.write(bad)
+ti = build_index([f"{d}/bad.lz4"], tolerant=True, device="cpu")
+assert ti.errors and len(ti) == 10 - len(spans)
+obs.reset()
+assert sum(1 for _ in FastWARCIterator(paths[1])) == 10
+assert obs.snapshot().counter("ingest.readahead.process") == 1
+assert len(list(WARCIOArchiveIterator(paths[1]))) == 10
+# zstd needs the package, and says so
+for call in (lambda: WarcWriter(open(f"{d}/z", "wb"), "zstd"),
+             lambda: list(FastWARCIterator(sys.argv[2]))):
+    try:
+        call()
+    except RuntimeError as exc:
+        assert "zstandard" in str(exc), exc
+    else:
+        raise AssertionError("zstd ran without zstandard")
+assert "zstandard" not in sys.modules or sys.modules["zstandard"] is None
+print("NO-ZSTD-OK", len(index))
+"""
+_NO_ZSTD_RUN = (_BLOCKER.replace('("jax", "jaxlib", "repro")',
+                                 '("jax", "jaxlib", "repro", "zstandard")')
+                .replace('sys.modules["jax"] = None',
+                         'sys.modules["jax"] = sys.modules["zstandard"] = None')
+                + 'if __name__ == "__main__":\n'
+                + textwrap.indent(_NO_ZSTD_BODY, "    "))
+
+
+def test_port_runs_without_zstandard(tmp_path):
+    """Every path but zstd's runs where ``zstandard`` cannot be imported
+    (the card's machine is not known to have it)."""
+    from repro_torch.data.synth import CorpusSpec, write_corpus
+
+    pytest.importorskip("zstandard")
+    zpath = str(tmp_path / "a.zstd")
+    write_corpus(zpath, CorpusSpec(n_pages=1), "zstd")
+    assert _NO_ZSTD_RUN.count('"zstandard"') >= 2
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    script = tmp_path / "no_zstd_run.py"
+    script.write_text(_NO_ZSTD_RUN)
+    out = subprocess.run([sys.executable, str(script), str(ROOT), zpath],
+                         capture_output=True, text=True, env=env,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "NO-ZSTD-OK 30" in out.stdout
 
 
 def test_port_runs_with_jax_and_reference_blocked(tmp_path):

@@ -114,10 +114,10 @@ def _sweep_or_die(path, **kw):
     return _ORIG_INDEX_SHARD(path, **kw)
 
 
-def _extract_or_die(path):
+def _extract_or_die(path, **kw):
     if "poison" in os.path.basename(path):
         os._exit(77)
-    return _ORIG_EXTRACT(path)
+    return _ORIG_EXTRACT(path, **kw)
 
 
 _ORIG_INDEX_SHARD = cdx._index_shard
@@ -297,9 +297,15 @@ def test_derive_workers_byte_identical(shards, tmp_path):
     finally:
         serial.close()
         pooled.close()
-    with pytest.raises(NotImplementedError, match="tolerant"):
-        derive(shards, str(tmp_path / "c.repcol"), tolerant=True,
-               device="cpu")
+    # the recovering parser in the workers: intact shards, the same bytes
+    tolerant = derive(shards, str(tmp_path / "c.repcol"), workers=2,
+                      tolerant=True, device="cpu")
+    try:
+        assert tolerant.errors == []
+        assert (tmp_path / "c.repcol").read_bytes() == \
+            (tmp_path / "a.repcol").read_bytes()
+    finally:
+        tolerant.close()
 
 
 def test_worker_kill_respawns_once(shards, ref_index, tmp_path):
