@@ -69,7 +69,8 @@ plain PyTorch version:
 12. process pool (run after phase 9), W = min(4, cpu count) workers
     started by ``forkserver`` (this process holds a CUDA context): (a)
     ``build_index(paths, workers=W, fused=False, device="cuda")``, the
-    host path in the workers, every column equal to phase 5's; (b)
+    host path in the workers, every column equal to phase 5's and each
+    of the W workers running one of the 4 shards; (b)
     ``build_index(paths, workers=W, device="cuda")``, the default on the
     card: ``digest_sig`` launched inside the workers, every column equal
     to phase 5's and
@@ -111,7 +112,29 @@ plain PyTorch version:
     shards (``fraction=0.01, seed=0``): a non-empty ledger, every
     surviving row equal to the intact row of its record ID, no
     ``/dev/shm/repro_torch-shm-*`` segment left. Without ``zstandard``
-    the zstd shard and cells are left out, and the run says so.
+    the zstd shard and cells are left out, and the run says so;
+14. training (run after phase 11, before phase 13): (a) the attention
+    backward kernel (``flash_attention_backward``, three launches: Δ,
+    dK/dV, dQ) and the forward's lse path (``flash_attention_fwd_lse``)
+    against ``attention_backward_plain`` / ``attention_plain`` (rtol =
+    atol = 1e-4) at fastwarc_lm's train_1k attention (q [32, 12, 1024,
+    64], k/v [32, 4, 1024, 64]), D = 16, 32 and 128, Sq < Sk, rows with
+    no key (exactly 0 gradient, lse 1e30) and non-causal, each timed
+    beside its plain version (and, at train_1k, the backward of
+    ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``),
+    then phase 4's f32 prefill time against its recorded range (failing
+    outside it widened by twice its width); (b) one
+    train step of the reduced fastwarc_lm on the card against the CPU
+    port, loss, every gradient and the parameters after AdamW; (c)
+    ``train_lm(arch="fastwarc_lm", batch=32, seq_len=1024, steps=20,
+    ckpt_every=10, device="cuda")`` on phase 1's corpus at full width:
+    the loss falls; tokens/s, step ms, peak device memory and launches a
+    step (the backward's calls and the CUDA launches its C entry point
+    reports); a second ``train_lm`` resumed from the step-10 checkpoint,
+    its losses within rtol 1e-5 (and whether bit-identical); the loader
+    restored from that checkpoint's cursor giving the uninterrupted
+    loader's batches bit for bit, and ``WarcTokenLoader(workers=2)``
+    (forkserver workers) the serial loader's 20 batches.
 
 The ``kernels`` line holds each kernel against its plain version on the
 inputs it is then timed on, at its main path's dominant shape; besides,
@@ -140,8 +163,11 @@ split-KV decode (``Sq = 1``) over cache views of 1, 256 and 1,000 keys
 ``scaled_dot_product_attention``.
 
 The launch count of each kernel is set to 0 before each path (phases 5,
-6, 7, 8, 9, 10, 11, 12 (b) and (c), 13 (b)-(f)) and read after it; every
-kernel of a path must have launched.
+6, 7, 8, 9, 10, 11, 12 (b) and (c), 13 (b)-(f), 14 (c)) and read after
+it; every kernel of a path must have launched. The ``kernels`` line
+carries the backward kernel too (no Pallas counterpart: the reference
+differentiates ``chunked_attention`` under XLA), its launches (calls)
+and ``cuda_launches`` those of phase 14 (c).
 
 Every phase raises on failure. The script prints a ``{"kernels": ...}``
 JSON line, the card's name and power limit, and as its last line
@@ -1422,6 +1448,17 @@ def pool_stats(snap, records: int | None = None) -> dict:
             "sources": list(snap.sources)}
 
 
+def check_spread(snap, workers: int, label: str) -> None:
+    """Raise unless every one of ``workers`` pool workers ran a shard
+    (published a stats snapshot): the pool deals breadth-first, so the 4
+    shards of (a)-(c) go one to each of the 4 workers."""
+    slots = {src.split(".")[0] for src in snap.sources
+             if src.startswith("worker-")}
+    if len(slots) != workers:
+        raise RuntimeError(f"pool {label}: {len(slots)} of {workers} "
+                           f"workers ran a shard ({sorted(snap.sources)})")
+
+
 def worker_stages(snap) -> dict:
     """Seconds of the workers' ``index.stage.*`` and ``stage.
     digest_signature_batch.*`` counters, summed over the workers (they
@@ -1452,6 +1489,7 @@ def pool_phase(paths: list[str], workdir: Path, index: CdxIndex,
     idx_a = build_index(paths, workers=w, fused=False, device="cuda")
     dt = time.perf_counter() - t0
     same_index(idx_a, index, "pool (a)")
+    check_spread(idx_a.obs, min(w, len(paths)), "(a)")
     out["host_build"] = {"seconds": dt, "records_per_s": n / dt,
                          "worker_stages_s": worker_stages(idx_a.obs),
                          **pool_stats(idx_a.obs, n)}
@@ -1469,6 +1507,7 @@ def pool_phase(paths: list[str], workdir: Path, index: CdxIndex,
     idx_b = build_index(paths, workers=w, device="cuda")
     dt = time.perf_counter() - t0
     same_index(idx_b, index, "pool (b)")
+    check_spread(idx_b.obs, min(w, len(paths)), "(b)")
     launches = idx_b.obs.counter("kernel.digest_sig.launches")
     buckets = idx_b.obs.counter("kernel.digest_signature_batch.dispatches")
     if ds.launches or launches != results["digest_sig_launches"]:
@@ -1504,6 +1543,7 @@ def pool_phase(paths: list[str], workdir: Path, index: CdxIndex,
     stage = {k: c.get(f"derive.stage.{k}_us", 0) / 1e6
              for k in ("parse", "digest_sig", "pack_write")}
     store2.close()
+    check_spread(snap, min(w, len(paths)), "(c)")
     if not filecmp.cmp(out2, workdir / "corpus.repcol", shallow=False):
         raise RuntimeError("pool (c): the .repcol file != phase 7's")
     out["derive"] = {"seconds": dt, "records_per_s": n / dt,
@@ -1970,6 +2010,319 @@ def reduced_lm_check(payloads: list[bytes]) -> dict:
         f"{launches} flash_attention launches")
     return {"d_head": cfg.d_head, "max_abs_diff_vs_cpu": diff,
             "engine_tokens": sum(map(len, outs[0])), "launches": launches}
+
+
+# -- phase 14 --------------------------------------------------------------
+# label, B, H, Hkv, Sq, Sk, D, causal: the backward kernel's checks; the
+# first is fastwarc_lm's attention at train_1k (batch 32 x 1,024)
+BWD_CASES = (
+    ("train_1k", 32, 12, 4, 1024, 1024, 64, True),
+    ("d16", 8, 4, 2, 512, 512, 16, True),
+    ("d32", 8, 4, 2, 512, 512, 32, True),
+    ("d128", 2, 8, 2, 512, 512, 128, True),
+    ("Sq < Sk", 2, 12, 4, 300, 700, 64, True),
+    ("rows with no key", 1, 4, 2, 256, 128, 64, True),
+    ("non-causal", 2, 12, 4, 256, 384, 64, False),
+)
+BWD_TOL = 1e-4      # rtol and atol of dq/dk/dv, lse and out against plain
+PREFILL_F32_MS = (0.5276, 0.5340)  # phase 4's f32 prefill, PRs 16-22
+# phase 14 (a) fails when phase 4's f32 prefill falls outside the range
+# widened by this on each side: twice the range's own width, the spread
+# of seven readings on seven machines (H100 80GB HBM3, 700 W)
+PREFILL_F32_MARGIN_MS = 2 * (PREFILL_F32_MS[1] - PREFILL_F32_MS[0])
+
+
+def bwd_cost(b: int, h: int, hkv: int, sq: int, sk: int, d: int,
+             causal: bool) -> tuple[int, int]:
+    """The backward's least work: read q, k, v, o, dO, lse once, write
+    dq, dk, dv (f32); 2 flops per multiply-add of the five products
+    (Q K^T, dO V^T, P^T dO, dS^T Q, dS K) over the pairs the mask keeps."""
+    i = np.arange(sq, dtype=np.int64)
+    pairs = (int(np.clip(i + sk - sq + 1, 0, sk).sum()) if causal
+             else sq * sk)
+    q_elems, kv_elems = b * h * sq * d, b * hkv * sk * d
+    nbytes = 4 * (4 * q_elems + 4 * kv_elems + b * h * sq)
+    return nbytes, 10 * b * h * d * pairs
+
+
+def attention_grad_checks(results: dict) -> None:
+    """(a) The backward kernel (``flash_attention_backward``, with the
+    forward's lse path ``flash_attention_fwd_lse``) against
+    ``attention_backward_plain`` on the card at each of ``BWD_CASES``,
+    within rtol/atol ``BWD_TOL``; each timed (L2 flushed) beside its
+    plain version and, at the training shape, the backward of
+    ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``.
+    Then phase 4's f32 prefill time against its recorded range."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        attention_backward_plain, flash_attention_backward)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    out, worst = {}, 0.0
+    for label, b, h, hkv, sq, sk, d, causal in BWD_CASES:
+        q = torch.randn((b, h, sq, d), generator=gen, device="cuda")
+        k, v = (torch.randn((b, hkv, sk, d), generator=gen, device="cuda")
+                for _ in range(2))
+        do = torch.randn((b, h, sq, d), generator=gen, device="cuda")
+        o, lse = fa.flash_attention_fwd_lse(q, k, v, causal=causal)
+        o_p, lse_p = attention_plain(q, k, v, causal=causal, return_lse=True)
+        got = flash_attention_backward(q, k, v, o, lse, do, causal=causal)
+        want = attention_backward_plain(q, k, v, o, lse, do, causal)
+        torch.cuda.synchronize()
+        errs = {"out": float((o - o_p).abs().max()),
+                "lse": float((lse - lse_p).abs().max())}
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            errs[name] = float((g - w).abs().max())
+            try:
+                torch.testing.assert_close(g, w, rtol=BWD_TOL, atol=BWD_TOL)
+            except AssertionError as exc:
+                raise RuntimeError(f"attention backward {label}: {name} "
+                                   f"card != plain: {exc}") from None
+        try:
+            torch.testing.assert_close(o, o_p, rtol=BWD_TOL, atol=1e-5)
+            torch.testing.assert_close(lse, lse_p, rtol=BWD_TOL,
+                                       atol=BWD_TOL)
+        except AssertionError as exc:
+            raise RuntimeError(f"attention forward (lse) {label}: card != "
+                               f"plain: {exc}") from None
+        if label == "rows with no key" and (
+                got[0][:, :, :sq - sk].abs().max() != 0
+                or lse[:, :, :sq - sk].min() != 1e30):
+            raise RuntimeError("attention backward: a row with no key has "
+                               "a gradient or a finite lse")
+        grad_err = max(errs["dq"], errs["dk"], errs["dv"])
+        worst = max(worst, grad_err)
+        ms = time_ms(lambda: flash_attention_backward(
+            q, k, v, o, lse, do, causal=causal))
+        fwd_ms = time_ms(lambda: fa.flash_attention_fwd_lse(
+            q, k, v, causal=causal))
+        pms = time_ms(lambda: attention_backward_plain(
+            q, k, v, o, lse, do, causal), 10)
+        nbytes, ops = bwd_cost(b, h, hkv, sq, sk, d, causal)
+        bnd, by = flash_bound(nbytes, ops, torch.float32)
+        lib = None
+        if label == "train_1k":
+            qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+            lo = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                                enable_gqa=True)
+            lib = time_ms(lambda: torch.autograd.grad(
+                lo, (qg, kg, vg), do, retain_graph=True))
+            del qg, kg, vg, lo
+        out[label] = {"shape_q": [b, h, sq, d], "shape_kv": [b, hkv, sk, d],
+                      "causal": causal, "max_abs_err": errs, "ms": ms,
+                      "fwd_lse_ms": fwd_ms, "plain_ms": pms,
+                      "library_ms": lib, "bound_ms": bnd, "bound_by": by,
+                      "bytes": nbytes, "flops": ops}
+        log(f"[train] (a) attention backward {label} q{[b, h, sq, d]} "
+            f"kv{[b, hkv, sk, d]} causal={causal}: {ms:.4g} ms/call (3 "
+            f"launches), bound {bnd:.4g} ms ({by}), plain {pms:.4g} ms"
+            + (f", SDPA backward {lib:.4g} ms" if lib is not None else "")
+            + f"; forward with lse {fwd_ms:.4g} ms; max |kernel - plain| "
+            + ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
+            + f" (tolerance rtol = atol = {BWD_TOL:g})")
+        del q, k, v, do, o, lse, o_p, lse_p, got, want
+        torch.cuda.empty_cache()
+    pre = results["flash"]["prefill"]["ms"]
+    lo, hi = PREFILL_F32_MS
+    gate = (lo - PREFILL_F32_MARGIN_MS, hi + PREFILL_F32_MARGIN_MS)
+    inside = lo <= pre <= hi
+    results["prefill_f32_check"] = {"ms": pre, "recorded": [lo, hi],
+                                    "gate": list(gate), "inside": inside}
+    if not gate[0] <= pre <= gate[1]:
+        raise RuntimeError(f"phase 4's f32 prefill with the lse parameter: "
+                           f"{pre:.4g} ms, outside {gate[0]:.4g}-"
+                           f"{gate[1]:.4g} ms (its recorded range {lo}-{hi} "
+                           f"ms +- {PREFILL_F32_MARGIN_MS:.4g})")
+    log(f"[train] (a) phase 4's f32 prefill with the lse parameter: "
+        f"{pre:.4g} ms ({'inside' if inside else 'outside'} its recorded "
+        f"range {lo}-{hi} ms; the gate {gate[0]:.4g}-{gate[1]:.4g} ms)")
+    results["attention_backward"] = out
+    results["max_abs_err"]["flash_attention_backward"] = worst
+
+
+TRAIN_STEPS = 20            # phase 14 (c): train_lm steps at train_1k ...
+TRAIN_CKPT_EVERY = 10       # ... with a checkpoint every this many
+STEP_TOL = {"loss": (1e-5, 0.0), "grads": (1e-3, 1e-5), "params": (1e-5, 5e-6)}
+
+
+def reduced_step_check() -> dict:
+    """(b) One training step of the reduced fastwarc_lm (d_head 32, the
+    spec's own) on the card against the CPU port, from the same seeded
+    parameters and batch (4 x 256 seeded tokens, some labels -1): the
+    loss, every gradient leaf and the parameters after the AdamW step
+    within ``STEP_TOL`` (rtol, atol; the card's attention is the f32
+    kernels, the CPU's the plain version in float64, and the matrix
+    products sum in another order). The step's AdamW has eps 1e-3, so
+    its update stays linear in the gradient (with 1e-8 the first step
+    moves a parameter whose gradient is near 0 by ~lr either way)."""
+    from repro_torch.kernels.flash_attention import backward as bwd
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    cfg = get_spec("fastwarc_lm").reduced
+    rng = np.random.default_rng(SEED + 14)
+    tokens = rng.integers(0, cfg.vocab, (4, 257)).astype(np.int32)
+    labels = tokens[:, 1:].copy()
+    labels[:, :3] = -1
+    batch = {"tokens": tokens[:, :-1], "labels": labels}
+    out = {}
+    f0, b0 = fa.launches, bwd.launches
+    for dev in ("cuda", "cpu"):
+        state = init_train_state(tf.init_params(
+            cfg, generator=torch.Generator().manual_seed(SEED), device=dev))
+        names, leaves = zip(*state["params"].named_parameters())
+        loss = tf.loss_fn(state["params"], batch["tokens"], batch["labels"],
+                          cfg)
+        grads = torch.autograd.grad(loss, leaves)
+        step = make_train_step(
+            lambda p, b: tf.loss_fn(p, b["tokens"], b["labels"], cfg),
+            AdamWConfig(warmup_steps=1, eps=1e-3))
+        state, _ = step(state, batch)
+        out[dev] = {"loss": loss.detach().cpu().reshape(1),
+                    "grads": {n: g.cpu() for n, g in zip(names, grads)},
+                    "params": {n: p.detach().cpu() for n, p in
+                               state["params"].named_parameters()}}
+    torch.cuda.synchronize()
+    launches = (fa.launches - f0, bwd.launches - b0)
+    errs = {}
+    for key, (rtol, atol) in STEP_TOL.items():
+        got, want = out["cuda"][key], out["cpu"][key]
+        if key == "loss":
+            got, want = {"loss": got}, {"loss": want}
+        errs[key] = max(float((got[n] - want[n]).abs().max()) for n in want)
+        for n in want:
+            try:
+                torch.testing.assert_close(got[n], want[n], rtol=rtol,
+                                           atol=atol)
+            except AssertionError as exc:
+                raise RuntimeError(f"train (b) {key} {n}: card != CPU: "
+                                   f"{exc}") from None
+    if min(launches) <= 0:
+        raise RuntimeError(f"train (b): launches (forward, backward) "
+                           f"{launches}")
+    log(f"[train] (b) reduced {cfg.name} (d_head {cfg.d_head}), one step "
+        f"on [4, 256] tokens: card == CPU (max |card - CPU|: loss "
+        f"{errs['loss']:.3g}, gradients {errs['grads']:.3g}, parameters "
+        f"after AdamW {errs['params']:.3g}; rtol/atol {STEP_TOL}); "
+        f"flash_attention / backward launches {launches}")
+    return {"max_abs_err": errs, "tolerance": STEP_TOL,
+            "launches": launches}
+
+
+def train_phase(paths: list[str], workdir: Path, results: dict) -> None:
+    """Phase 14: (a) the backward kernel against its plain version; (b)
+    the reduced step, card against CPU; (c) ``train_lm`` at full width
+    (train_1k: batch 32 x 1,024) on phase 1's corpus for ``TRAIN_STEPS``
+    steps with a checkpoint every ``TRAIN_CKPT_EVERY``: the loss falls
+    (``train_lm`` returns each step's loss and time); a second
+    ``train_lm`` resumed from the step-10 checkpoint gives the same
+    losses (rtol 1e-5); the loader restored from that checkpoint's cursor
+    gives the uninterrupted loader's batches bit for bit, and a
+    ``WarcTokenLoader(workers=2)`` the serial loader's."""
+    from repro_torch.data.loader import WarcTokenLoader
+    from repro_torch.kernels.flash_attention import backward as bwd
+    from repro_torch.launch.train import train_lm
+    from repro_torch.train import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    attention_grad_checks(results)
+    reduced = reduced_step_check()
+    spec = get_spec("fastwarc_lm")
+    shape = spec.shape("train_1k").params
+    batch, seq = shape["global_batch"], shape["seq_len"]
+    kw = dict(arch="fastwarc_lm", shards=paths, batch=batch, seq_len=seq,
+              ckpt_every=TRAIN_CKPT_EVERY, log_every=5, device="cuda")
+    ck_a, ck_b = workdir / "train-a", workdir / "train-b"
+    fa.launches = bwd.launches = bwd.cuda_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    stats = train_lm(steps=TRAIN_STEPS, ckpt_dir=str(ck_a), **kw)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"flash_attention": fa.launches,
+                "flash_attention_backward": bwd.launches,
+                "flash_attention_backward (CUDA launches)": bwd.cuda_launches}
+    if min(launches.values()) <= 0:
+        raise RuntimeError(f"train_lm did not launch both kernels: {launches}")
+    losses, step_s = stats["losses"], stats["step_s"]
+    if not (len(losses) == TRAIN_STEPS and all(map(np.isfinite, losses))
+            and np.mean(losses[-5:]) < np.mean(losses[:5])):
+        raise RuntimeError(f"train_lm: the loss did not fall: {losses}")
+    step_ms = float(np.median(step_s[1:])) * 1e3
+    tok_s = batch * seq / (step_ms / 1e3)
+    log(f"[train] (c) train_lm fastwarc_lm at full width, train_1k [{batch}, "
+        f"{seq}], {TRAIN_STEPS} steps: loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; step median {step_ms:.1f} ms (steps 1-"
+        f"{TRAIN_STEPS - 1}, train_lm's step_s; step 0 "
+        f"{step_s[0] * 1e3:.1f} ms) = {tok_s:.0f} tokens/s; train_lm's own "
+        f"tokens/s over its wall {stats['tokens_per_s']:.0f}; peak device "
+        f"memory {peak} bytes; launches a step: flash_attention "
+        f"{launches['flash_attention'] / TRAIN_STEPS:g}, backward "
+        f"{launches['flash_attention_backward'] / TRAIN_STEPS:g} calls = "
+        f"{bwd.cuda_launches / TRAIN_STEPS:g} CUDA launches (as the C entry "
+        f"counted them); {stats['straggler_events']} straggler events")
+
+    # resume from the step-10 checkpoint
+    ck_b.mkdir()
+    shutil.copytree(ck_a / f"step_{TRAIN_CKPT_EVERY:09d}",
+                    ck_b / f"step_{TRAIN_CKPT_EVERY:09d}")
+    resumed = train_lm(steps=TRAIN_STEPS, ckpt_dir=str(ck_b), **kw)
+    want = np.asarray(losses[TRAIN_CKPT_EVERY:])
+    got = np.asarray(resumed["losses"])
+    if got.shape != want.shape:
+        raise RuntimeError(f"resumed train_lm ran {got.shape[0]} steps, "
+                           f"not {want.shape[0]}")
+    resume_err = float(np.abs(got - want).max())
+    if not np.allclose(got, want, rtol=1e-5, atol=0):
+        raise RuntimeError(f"resumed losses {got} != {want}")
+    identical = bool(np.array_equal(got, want))
+
+    # the batches train_lm was fed: its loader's, from the start (serial),
+    # from the step-10 checkpoint's cursor, and with 2 pool workers
+    # (forkserver: this process holds a CUDA context)
+    def take(n, cursor=None, workers=0):
+        loader = WarcTokenLoader(paths, batch=batch, seq_len=seq,
+                                 workers=workers)
+        if cursor is not None:
+            loader.restore(cursor)
+        try:
+            it = iter(loader)
+            return [next(it) for _ in range(n)]
+        finally:
+            loader.close()
+
+    serial = take(TRAIN_STEPS)
+    _, extras = ckpt.restore(str(ck_b), step=TRAIN_CKPT_EVERY)
+    tail = take(TRAIN_STEPS - TRAIN_CKPT_EVERY, extras["loader"])
+    if not all(np.array_equal(a, b)
+               for a, b in zip(tail, serial[TRAIN_CKPT_EVERY:])):
+        raise RuntimeError("the loader from the step-10 checkpoint's cursor "
+                           "!= the uninterrupted loader's batches")
+    log(f"[train] (c) resumed from step {TRAIN_CKPT_EVERY}: the "
+        f"checkpoint's loader cursor gives {len(tail)} batches bit-identical "
+        f"to the uninterrupted loader's; losses within rtol 1e-5 (max "
+        f"|diff| {resume_err:.3g}, "
+        f"{'bit-identical' if identical else 'not bit-identical'})")
+    t0 = time.perf_counter()
+    pooled = take(TRAIN_STEPS, workers=2)
+    if not all(np.array_equal(a, b) for a, b in zip(pooled, serial)):
+        raise RuntimeError("WarcTokenLoader(workers=2) != the serial "
+                           "loader's batches")
+    log(f"[train] (c) WarcTokenLoader(workers=2): {TRAIN_STEPS} batches "
+        f"bit-identical to the serial loader's, "
+        f"{time.perf_counter() - t0:.3f} s")
+    shutil.rmtree(ck_a)
+    shutil.rmtree(ck_b)
+    results["train"] = {
+        "reduced": reduced, "shape": [batch, seq], "steps": TRAIN_STEPS,
+        "losses": losses, "step_s": step_s, "step_ms": step_ms,
+        "tokens_per_s": tok_s, "train_lm_tokens_per_s": stats["tokens_per_s"],
+        "peak_device_bytes": peak, "launches": launches,
+        "launches_per_step": {k: v / TRAIN_STEPS for k, v in launches.items()},
+        "resume": {"losses": resumed["losses"], "max_abs_diff": resume_err,
+                   "bit_identical": identical},
+        "phase_s": time.perf_counter() - t_phase}
+    log(f"[train] phase 14 in {results['train']['phase_s']:.3f} s")
 
 
 # -- phase 13 --------------------------------------------------------------
@@ -2709,6 +3062,7 @@ def kernel_line(results: dict, store: ColumnStore) -> dict:
     # flash_attention: phase 4's prefill case heads the entry, every case
     # beside it, each checked on the inputs it was timed on
     fl = results["flash"]["prefill"]
+    bw = results["attention_backward"]["train_1k"]
     codec = results["codecs"]["launches"]
     return {"floor": floor, "kernels": [
         {"name": "pattern_scan", "route": "cuda",
@@ -2807,7 +3161,8 @@ def kernel_line(results: dict, store: ColumnStore) -> dict:
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:93",
-         "launches": results["flash_launches"],
+         "launches": (results["flash_launches"]
+                      + results["train"]["launches"]["flash_attention"]),
          "max_abs_err": err["flash_attention"],
          "ms": fl["ms"], "plain_ms": fl["plain_ms"],
          "bound_ms": fl["bound_ms"], "bound_by": fl["bound_by"],
@@ -2816,11 +3171,33 @@ def kernel_line(results: dict, store: ColumnStore) -> dict:
                     "enable_gqa=True)",
          "shape": [fl["shape_q"], fl["shape_kv"]], "dtype": "float32",
          "max_abs_err_bf16": err["flash_attention_bf16"],
-         "launches_by_phase": results["lm"]["flash_launches"],
+         "launches_by_phase": {
+             **results["lm"]["flash_launches"],
+             "train_lm": results["train"]["launches"]["flash_attention"]},
+         "train_1k_lse_ms": bw["fwd_lse_ms"],
          "cases": {label: {k: c[k] for k in (
              "shape_q", "shape_kv", "dtype", "causal", "ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms", "max_abs_err")}
              for label, c in results["flash"].items()}},
+        {"name": "flash_attention_backward", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention_bwd.cu",
+         "replaces": "src/repro/models/attention.py:51 (no Pallas kernel: "
+                     "XLA's gradient of chunked_attention)",
+         "launches": results["train"]["launches"]["flash_attention_backward"],
+         "cuda_launches": results["train"]["launches"][
+             "flash_attention_backward (CUDA launches)"],
+         "max_abs_err": err["flash_attention_backward"],
+         "ms": bw["ms"], "plain_ms": bw["plain_ms"],
+         "bound_ms": bw["bound_ms"], "bound_by": bw["bound_by"],
+         "library_ms": bw["library_ms"],
+         "library": "backward of scaled_dot_product_attention(is_causal="
+                    "True, enable_gqa=True)",
+         "shape": [bw["shape_q"], bw["shape_kv"]], "dtype": "float32",
+         "cases": {label: {k: c[k] for k in (
+             "shape_q", "shape_kv", "causal", "ms", "plain_ms", "bound_ms",
+             "bound_by", "library_ms", "max_abs_err")}
+             for label, c in results["attention_backward"].items()}},
     ]}
 
 
@@ -2877,6 +3254,10 @@ def main() -> int:
     gateway_phase(index, checked, results)
     rowgroup_multi_phase(store, results)
     lm_phase(paths, results)
+    try:
+        train_phase(paths, workdir, results)
+    finally:
+        stop_mp_helpers()
     codec_phase(workdir, results)
     codec = results["codecs"]["launches"]
 
@@ -2900,6 +3281,10 @@ def main() -> int:
                     results["lm"]["flash_launches"]["prefill"],
                 "flash_attention (LM engine)":
                     results["lm"]["flash_launches"]["engine"],
+                "flash_attention (train_lm)":
+                    results["train"]["launches"]["flash_attention"],
+                "flash_attention_backward (train_lm)":
+                    results["train"]["launches"]["flash_attention_backward"],
                 **{f"{k}, codecs": v for k, v in codec.items()}}
     log(f"[launches] main paths: {launches}")
     if min(launches.values()) <= 0:

@@ -9,6 +9,8 @@ is the bottleneck; this module fans the shard sweeps out over cores:
   memory), chunked result transfer (amortizes pickling), and an *ordered*
   mode that re-sequences per-shard result streams so consumers see
   exactly the serial order.
+* :func:`iter_documents_parallel` — ``iter_documents`` over many shards
+  (parse, HTTP decode and HTML→text in the workers).
 * :func:`iter_records_parallel` — whole WARC records out of many shards.
 * :func:`map_shards` — one-result-per-shard map (map-reduce support;
   ``build_index`` and ``columnar.derive`` merge per-shard partials).
@@ -17,6 +19,11 @@ Worker functions must be module-level (picklable) so the pool also works
 under the ``spawn`` and ``forkserver`` start methods, which it uses
 whenever a worker may touch CUDA or the parent already holds a CUDA
 context (:func:`_default_context`).
+
+**Task dealing**: the parent sends each shard down one worker's own task
+pipe and records the claim itself at send time (no task queue, and so no
+reader lock, shared between processes); a worker that dies holding dealt
+shards has every one of them re-driven.
 
 **Result transport**: every worker writes its own result pipe (no lock
 shared between processes; see :class:`_ResultInbox`). By default chunks
@@ -62,6 +69,7 @@ except ImportError:  # pragma: no cover - py>=3.8 everywhere we run
 __all__ = [
     "ParallelWarcPool",
     "ParallelWorkerError",
+    "iter_documents_parallel",
     "iter_records_parallel",
     "map_shards",
 ]
@@ -74,6 +82,8 @@ _CHUNK_BLOB = 4  # payload: pickled chunk bytes (ring-overflow fallback)
 _QUAR = 5        # synthetic, parent-side only: shard quarantined as poison
 
 _DEFAULT_CHUNK_SIZE = 64
+_DEAL_DEPTH = 2             # shards dealt to a worker and not yet done
+_TASK_PIPE_SAFE = 16 << 10  # a task this large goes only to an idle worker
 _SHM_SLOT_BYTES = 4 << 20   # per-slot capacity; larger chunks fall back
 _SHM_SLOTS = 4              # slots per worker (in-flight chunk window)
 _PICKLE_MARK = 0xFFFFFFFF   # frame-count marker: slot holds one pickle blob
@@ -343,25 +353,25 @@ def _maybe_worker_kill(counter: int, spec: str | None) -> None:
     os._exit(42)
 
 
-def _worker_loop(task_q, result_conn, worker_fn, chunk_size: int,
+def _worker_loop(task_conn, result_conn, worker_fn, chunk_size: int,
                  shm_args=None, encode=None, wid: int = 0,
-                 hb=None, stop_ev=None, claims=None, hist=None,
-                 hist_len: int = 0, credit=None,
+                 hb=None, stop_ev=None, claims=None, credit=None,
                  fault_kill: str | None = None,
                  stats_args=None) -> None:
-    """Child-process main: stream worker_fn(item) results back in chunks
-    through this worker's own result pipe (``result_conn``, the write
-    end; see :class:`_ResultInbox`).
+    """Child-process main: read ``(idx, item, skip)`` tasks from this
+    worker's own task pipe (``task_conn``, the read end: the parent deals
+    every task and records the claim itself when it sends it) and stream
+    worker_fn(item) results back in chunks through this worker's own
+    result pipe (``result_conn``, the write end; see :class:`_ResultInbox`).
 
-    With ``stop_ev`` set (supervised pools) the loop polls the task
-    queue instead of blocking on a sentinel, stamps a heartbeat (``hb``,
-    a shared double) whenever it makes progress, records each claimed
-    task in ``claims[wid]`` (a shared array — written *synchronously*,
-    because a message can die half-written with the process and the
-    parent must still know which shard to re-drive), and honors per-task
-    resume cursors: a ``(idx, item, skip)`` task re-drives the shard but
-    suppresses the first ``skip`` results — exactly the slice the parent
-    already holds.
+    The loop polls its task pipe and stops when ``stop_ev`` is set or its
+    parent is gone. In supervised pools it stamps a heartbeat (``hb``, a
+    shared double) whenever it makes progress and marks the task it
+    starts in ``claims[wid]`` — which shard a death is blamed on, and
+    what the hang detector watches; a death before that mark re-drives
+    the shard all the same, blamelessly. Every task carries a resume
+    cursor: ``skip`` results are suppressed — exactly the slice the
+    parent already holds of a re-driven shard.
 
     ``credit`` is this worker's result-credit semaphore: acquired
     before every message, released by the parent per message received —
@@ -401,7 +411,6 @@ def _worker_loop(task_q, result_conn, worker_fn, chunk_size: int,
         return os.getppid() != ppid
 
     sent_total = 0
-    nclaims = 0
     result_fd = result_conn.fileno()
 
     def put(msg) -> None:
@@ -431,24 +440,17 @@ def _worker_loop(task_q, result_conn, worker_fn, chunk_size: int,
 
     try:
         while True:
-            try:
-                task = task_q.get(timeout=0.25)
-            except _queue_mod.Empty:
+            if not task_conn.poll(0.25):
                 beat()
-                if stop_ev is not None and stop_ev.is_set() or orphaned():
+                if stop_ev.is_set() or orphaned():
                     return
                 continue
-            if task is None:
-                if stop_ev is not None:
-                    continue  # stray sentinel: stop_ev is authoritative
+            try:
+                idx, item, skip = ForkingPickler.loads(
+                    task_conn.recv_bytes())
+            except EOFError:  # the parent closed this worker's task pipe
                 return
-            idx, item, *rest = task
-            skip = rest[0] if rest else 0
             if claims is not None:
-                # history first, then the live claim: a death between the
-                # two writes still leaves the shard re-drivable
-                hist[wid * hist_len + (nclaims % hist_len)] = idx
-                nclaims += 1
                 claims[wid] = idx
             beat()
             try:
@@ -546,14 +548,16 @@ class ParallelWarcPool:
         Without one, shm slots carry a single pickle blob (still
         skipping the pipe).
     supervise:
-        enable the fault-tolerance supervisor: workers poll for tasks
-        under a shared stop event (no sentinels) and stamp heartbeats;
-        the parent detects dead children (exitcode) and — with
-        ``hang_timeout_s`` — hung ones (stale heartbeat while holding a
-        task), reaps/reset their ring semaphore, respawns with capped
-        exponential backoff, and **re-drives only the unfinished slice**
-        of the interrupted shard (the worker skips exactly the results
-        the parent already decoded). A shard that kills
+        enable the fault-tolerance supervisor: workers stamp heartbeats
+        and mark the shard they start; the parent detects dead children
+        (exitcode) and — with ``hang_timeout_s`` — hung ones (stale
+        heartbeat while holding a task), reaps/reset their ring
+        semaphore, respawns with capped exponential backoff, and
+        **re-drives every shard it dealt the dead worker and has not seen
+        done**, each from its unfinished slice (the worker skips exactly
+        the results the parent already decoded): a kill at any moment —
+        mid-shard, between reading a task and starting it, idle in the
+        task read — loses nothing and blocks no other worker. A shard that kills
         ``poison_kills`` workers is quarantined: the event stream emits
         ``("quarantined", idx, reason)`` instead of hanging or raising.
         Worker *exceptions* still raise :class:`ParallelWorkerError` —
@@ -585,18 +589,22 @@ class ParallelWarcPool:
             # anew, as under spawn (seconds each). A no-op once this
             # process's server runs.
             self._ctx.set_forkserver_preload(["torch", __name__])
-        self._tasks = self._ctx.Queue(maxsize=2 * self.workers)
         # unread result messages allowed per worker: the backpressure
         # that keeps workers from buffering a whole crawl in the parent
         self._queue_chunks = 4 * self.workers
         self._credits = [self._ctx.Semaphore(self._queue_chunks)
                          for _ in range(self.workers)]
-        # shards a supervisor tick must re-drive, put on the task queue
-        # without blocking by the event loop (_flush_requeues): a tick
-        # that blocked on a full task queue would stop the parent from
-        # reading results, and with every worker waiting for a result
-        # credit nothing would ever free the queue
+        # shards waiting to be dealt: re-driven ones (a supervisor tick's
+        # (idx, item, skip)) go first, then the feeder's (idx, item).
+        # Only the event loop deals (_deal), never blocking on a worker:
+        # a parent blocked on a send would stop reading results, and a
+        # worker waiting for a result credit would never read its task
         self._requeues: collections.deque = collections.deque()
+        self._backlog: collections.deque = collections.deque()
+        # per worker: the parent-side end of its task pipe, and the shards
+        # dealt to it and not yet done (idx -> item), in dealing order
+        self._task_conns: list = [None] * self.workers
+        self._dealt: list[dict] = [{} for _ in range(self.workers)]
         self._stop = threading.Event()
         self._feed_done = threading.Event()
         self._total: int | None = None
@@ -608,20 +616,10 @@ class ParallelWarcPool:
         self.max_respawns = max_respawns
         self.hang_timeout_s = hang_timeout_s
         self.poison_kills = poison_kills
-        self._stop_ev = self._ctx.Event() if supervise else None
+        self._stop_ev = self._ctx.Event()
         self._claims = (self._ctx.Array("q", [-1] * self.workers, lock=False)
                         if supervise else None)
-        # per-worker claim-history ring: every shard a dead worker may
-        # still owe the parent data for is re-drivable — the credit
-        # semaphore admits at most `queue_chunks` unread messages per
-        # worker and every finished task emits at least one (_DONE), so
-        # `queue_chunks + 2` claim slots cannot wrap past such a task
-        self._hist_len = self._queue_chunks + 2
-        self._hist = (self._ctx.Array(
-            "q", [-1] * (self.workers * self._hist_len), lock=False)
-            if supervise else None)
         self._respawns = 0
-        self._task_items: dict[int, Any] = {}   # supervise: idx -> item
         self._synthetic: collections.deque = collections.deque()
         self.supervisor_stats = {"respawns": 0, "quarantined": 0, "hangs": 0}
         requested = transport
@@ -706,17 +704,22 @@ class ParallelWarcPool:
             stats_args = (self._stats_seg.name, wid * STATS_SLOT_BYTES,
                           f"worker-{wid}.{self._stats_gen[wid]}")
         writer = self._results.open(wid)
+        task_reader, task_writer = self._ctx.Pipe(duplex=False)
+        if self._task_conns[wid] is not None:
+            self._task_conns[wid].close()  # the dead incarnation's
+        self._task_conns[wid] = task_writer
         p = self._ctx.Process(
             target=_worker_loop,
-            args=(self._tasks, writer, self._worker_fn,
+            args=(task_reader, writer, self._worker_fn,
                   self._chunk_size, shm_args, self._encode, wid, hb,
-                  self._stop_ev, self._claims, self._hist, self._hist_len,
-                  self._credits[wid],
+                  self._stop_ev, self._claims, self._credits[wid],
                   os.environ.get(FAULT_WORKER_KILL_ENV), stats_args),
             daemon=True)
         p.start()
-        # the worker holds the write end now: its exit ends the pipe
+        # the worker holds the write end now: its exit ends the pipe; and
+        # the task pipe's read end is its alone
         writer.close()
+        task_reader.close()
         return p
 
     # -- shm decode ------------------------------------------------------
@@ -749,6 +752,8 @@ class ParallelWarcPool:
 
     # -- task feeding ----------------------------------------------------
     def _feed(self, items: Iterable) -> None:
+        """Feeder thread: pull ``items`` (possibly lazy and endless) into
+        the backlog the event loop deals from, a few shards ahead."""
         count = 0
         try:
             for idx, item in enumerate(items):
@@ -756,40 +761,52 @@ class ParallelWarcPool:
                 # than a window of shards — otherwise every faster shard's
                 # full output piles up in the consumer's `pending` buffer
                 # (unbounded memory) while one slow shard holds `cur`
-                # ... and re-driven shards go first
-                while ((self._requeues or (
+                while ((len(self._backlog) >= 2 * self.workers or (
                         self._window is not None
                         and idx - self._progress > self._window))
                        and not self._stop.is_set()):
                     time.sleep(0.01)
-                if self.supervise:
-                    # the supervisor re-drives interrupted shards: it
-                    # needs the item long after the feeder moved on
-                    self._task_items[idx] = item
-                while not self._stop.is_set():
-                    try:
-                        self._tasks.put((idx, item), timeout=0.1)
-                        break
-                    except _queue_mod.Full:
-                        continue
                 if self._stop.is_set():
                     return
+                self._backlog.append((idx, item))
                 count = idx + 1
         except BaseException as exc:  # surfaced by iter_events, not swallowed
             self._feed_error = exc
         finally:
             self._total = count
             self._feed_done.set()
-            # release the workers; bounded put so close() can always win.
-            # Supervised workers stop via the shared event instead — a
-            # sentinel could race ahead of a requeued shard and kill the
-            # worker meant to re-drive it.
-            sentinels = 0 if self.supervise else self.workers
-            while sentinels and not self._stop.is_set():
+
+    def _deal(self) -> None:
+        """Send waiting shards, re-driven ones first, to live workers
+        with fewer than ``_DEAL_DEPTH`` shards outstanding, recording
+        each claim before its send. Dealing is breadth-first: every
+        worker gets its first shard before any gets a second, so N
+        shards over W <= N workers keep all W busy. A task past
+        ``_TASK_PIPE_SAFE`` bytes goes only to a worker with nothing
+        outstanding (it reads at once), so a send never blocks the
+        event loop."""
+        for depth in range(_DEAL_DEPTH):
+            for wid in range(self.workers):
+                if not (self._requeues or self._backlog):
+                    return
+                dealt = self._dealt[wid]
+                if (len(dealt) > depth
+                        or self._procs[wid].exitcode is not None):
+                    continue
+                requeued = bool(self._requeues)
+                idx, item, *rest = (self._requeues[0] if requeued
+                                    else self._backlog[0])
+                skip = rest[0] if rest else 0
+                data = ForkingPickler.dumps((idx, item, skip))
+                if dealt and len(data) > _TASK_PIPE_SAFE:
+                    continue
+                (self._requeues if requeued else self._backlog).popleft()
+                dealt[idx] = item  # the claim, before the send
                 try:
-                    self._tasks.put(None, timeout=0.1)
-                    sentinels -= 1
-                except _queue_mod.Full:
+                    self._task_conns[wid].send_bytes(data)
+                except OSError:
+                    # the worker is gone: its claims are re-driven (or
+                    # the stream fails) once its death is seen
                     continue
 
     # -- observability ---------------------------------------------------
@@ -842,10 +859,10 @@ class ParallelWarcPool:
         result is waiting, and acts on a dead worker only once its result
         pipe has reached its end: every message it managed to deliver has
         been decoded (and its ring slot released) before we compute the
-        resume cursor, so ``received[idx]`` is exact. The
-        in-flight shard comes from the shared claims array, not a pipe
-        message — a worker that dies the instant it claims still leaves
-        the claim behind.
+        resume cursor, so ``received[idx]`` is exact. What to re-drive
+        comes from the parent's own record of the shards it dealt the
+        worker; the shared claims array says only which of them the
+        worker had started — the one a death is blamed on.
         """
         # harvest first: a dead worker's last published counters must be
         # captured before its replacement starts overwriting the slot
@@ -853,7 +870,8 @@ class ParallelWarcPool:
         now = time.monotonic()
         for wid, p in enumerate(self._procs):
             claim = self._claims[wid]
-            holds_task = claim >= 0 and claim not in terminal
+            dealt = self._dealt[wid]
+            holds_task = claim >= 0 and claim in dealt
             if (p.exitcode is None and self.hang_timeout_s is not None
                     and holds_task
                     and now - self._hb[wid].value > self.hang_timeout_s):
@@ -871,18 +889,10 @@ class ParallelWarcPool:
             # workers only return after close() sets the stop event
             idx = claim if holds_task else None
             # every whole message the worker sent has been read (its
-            # pipe ended; a partial last one was dropped), so a shard of
-            # the claim history that is still not terminal owes the
-            # parent data: re-drive it — blameless (no kill attribution:
-            # the current claim did the killing).
-            base = wid * self._hist_len
-            lost: list[int] = []
-            for j in range(self._hist_len):
-                h = self._hist[base + j]
-                if (h >= 0 and h not in terminal and h != idx
-                        and h not in lost):
-                    lost.append(h)
-                self._hist[base + j] = -1
+            # pipe ended; a partial last one was dropped), so every shard
+            # dealt to it and not done owes the parent data: re-drive it
+            # — blameless unless it is the one the worker had started
+            lost = {i: item for i, item in dealt.items() if i != idx}
             quarantine = False
             if idx is not None:
                 kills[idx] = kills.get(idx, 0) + 1
@@ -918,7 +928,8 @@ class ParallelWarcPool:
                 pass
             for _ in range(self._queue_chunks):
                 credit.release()
-            self._claims[wid] = -1  # the requeue below owns the shard now
+            self._claims[wid] = -1  # the requeues below own the shards now
+            self._dealt[wid] = {}
             self._procs[wid] = self._make_worker(wid)
             if quarantine:
                 self.supervisor_stats["quarantined"] += 1
@@ -926,24 +937,11 @@ class ParallelWarcPool:
                                         f"shard killed {kills[idx]} "
                                         f"worker(s); quarantined"))
             elif idx is not None:
-                lost.append(idx)
-            for i in lost:
-                self._requeue(i, received.get(i, 0))
+                lost[idx] = dealt[idx]
+            # in dealing order: an earlier shard holds the ordered cursor
+            for i in sorted(lost):
+                self._requeues.append((i, lost[i], received.get(i, 0)))
         return backoff
-
-    def _requeue(self, idx: int, skip: int) -> None:
-        self._requeues.append((idx, self._task_items.get(idx), skip))
-        self._flush_requeues()
-
-    def _flush_requeues(self) -> None:
-        """Put re-driven shards on the task queue as far as it has room;
-        the event loop retries the rest on its next turn."""
-        while self._requeues:
-            try:
-                self._tasks.put(self._requeues[0], block=False)
-            except _queue_mod.Full:
-                return
-            self._requeues.popleft()
 
     # -- event stream ----------------------------------------------------
     def iter_events(self, items: Iterable, *,
@@ -983,8 +981,7 @@ class ParallelWarcPool:
             return (cur if ordered else done_seen) >= self._total
 
         while not finished():
-            if self._requeues:
-                self._flush_requeues()
+            self._deal()
             if self._feed_error is not None:
                 raise ParallelWorkerError(
                     -1, f"task iterable raised: {self._feed_error!r}",
@@ -1019,6 +1016,8 @@ class ParallelWarcPool:
                     continue
             if kind == _ERROR:
                 raise ParallelWorkerError(idx, payload[0], payload[1])
+            if kind == _DONE:
+                self._dealt[src].pop(idx, None)
             if self.supervise and idx in terminal:
                 # stale duplicate from a requeue race: the shard already
                 # completed; drop the message (still release ring slots)
@@ -1046,7 +1045,6 @@ class ParallelWarcPool:
                 done_seen += 1
                 if self.supervise:
                     terminal.add(idx)
-                    self._task_items.pop(idx, None)
             if not ordered:
                 if kind == _CHUNK:
                     yield ("chunk", idx, payload)
@@ -1103,11 +1101,10 @@ class ParallelWarcPool:
             return
         self._closed = True
         self._stop.set()
-        if self._stop_ev is not None:
-            try:
-                self._stop_ev.set()
-            except (OSError, ValueError):  # pragma: no cover - teardown race
-                pass
+        try:
+            self._stop_ev.set()
+        except (OSError, ValueError):  # pragma: no cover - teardown race
+            pass
         if self._feeder is not None:
             self._feeder.join(timeout=2.0)
         for sem in self._sems:   # unblock writers stuck on a full ring
@@ -1124,8 +1121,9 @@ class ParallelWarcPool:
         self._harvest_worker_stats()  # final: before the segment unlinks
         self._absorb_stats()
         try:
-            self._tasks.close()
-            self._tasks.cancel_join_thread()
+            for conn in self._task_conns:
+                if conn is not None:
+                    conn.close()
             self._results.close()
         except (OSError, ValueError):  # pragma: no cover - teardown race
             pass
@@ -1164,8 +1162,88 @@ class ParallelWarcPool:
 # Shard-level worker functions (module-level: picklable under spawn)
 # --------------------------------------------------------------------------
 
+def _extract_documents(path: str, *, min_length: int = 64,
+                       status_ok_only: bool = True,
+                       readahead: bool | None = None,
+                       tolerant: bool = False):
+    from repro_torch.core.pipeline import iter_documents
+
+    yield from iter_documents(path, min_length=min_length,
+                              status_ok_only=status_ok_only,
+                              readahead=readahead, tolerant=tolerant)
+
+
 def _call_one(fn: Callable, item):
     yield fn(item)
+
+
+# -- Document frame codec (module-level: picklable under spawn) ----------
+
+_DOC_HEADER = struct.Struct("<iqI")  # uri_len (-1: None), offset, text_len
+
+
+def _encode_document(doc) -> bytes:
+    """One Document → one length-prefixable frame (no pickle)."""
+    uri = doc.uri.encode("utf-8") if doc.uri is not None else None
+    return (_DOC_HEADER.pack(-1 if uri is None else len(uri),
+                             doc.record_offset, len(doc.text))
+            + (uri or b"") + doc.text)
+
+
+def _decode_document(view: memoryview):
+    """Frame → Document; copies out of the borrowed ring view (the slot
+    recycles right after decode)."""
+    from repro_torch.core.pipeline import Document
+
+    uri_len, offset, text_len = _DOC_HEADER.unpack_from(view)
+    off = _DOC_HEADER.size
+    uri = None
+    if uri_len >= 0:
+        uri = bytes(view[off:off + uri_len]).decode("utf-8")
+        off += uri_len
+    return Document(uri, bytes(view[off:off + text_len]), offset)
+
+
+def iter_documents_parallel(paths: Iterable[str], *,
+                            workers: int | None = None,
+                            ordered: bool = False,
+                            min_length: int = 64,
+                            status_ok_only: bool = True,
+                            chunk_size: int = _DEFAULT_CHUNK_SIZE,
+                            mp_context: str | None = None,
+                            transport: str | None = None,
+                            readahead: bool | None = None,
+                            tolerant: bool = False,
+                            supervise: bool = False) -> Iterator:
+    """Parallel ``iter_documents`` over many WARC shards.
+
+    Parse, HTTP decode and HTML→text extraction run in ``workers``
+    processes; under the default transport each extracted
+    :class:`~repro_torch.core.pipeline.Document` chunk is written once into
+    a shared-memory ring slot as length-prefixed frames and decoded from a
+    zero-copy view of it (``transport="pickle"`` sends it through the
+    worker's pipe). ``workers=0`` is the serial path (the same documents,
+    one process). ``ordered=True`` reproduces the serial document order;
+    the default streams documents as shards finish.
+    """
+    paths = [p for p in paths]
+    if workers is not None and workers <= 0:
+        from repro_torch.core.pipeline import iter_documents
+
+        for p in paths:
+            yield from iter_documents(p, min_length=min_length,
+                                      status_ok_only=status_ok_only,
+                                      readahead=readahead,
+                                      tolerant=tolerant)
+        return
+    fn = functools.partial(_extract_documents, min_length=min_length,
+                           status_ok_only=status_ok_only,
+                           readahead=readahead, tolerant=tolerant)
+    with ParallelWarcPool(fn, workers=workers, chunk_size=chunk_size,
+                          mp_context=mp_context, transport=transport,
+                          frame_codec=(_encode_document, _decode_document),
+                          supervise=supervise) as pool:
+        yield from pool.iter_results(paths, ordered=ordered)
 
 
 # -- WarcRecord frame codec (module-level: picklable under spawn) --------
@@ -1207,10 +1285,12 @@ def _decode_record(view: memoryview):
 
 
 def _extract_records(path: str, *, types_value: int, parse_http: bool,
-                     readahead: bool | None = None):
+                     readahead: bool | None = None,
+                     tolerant: bool = False):
     from repro_torch.core.warc import FastWARCIterator
 
-    it = FastWARCIterator(path, parse_http=parse_http, readahead=readahead)
+    it = FastWARCIterator(path, parse_http=parse_http, readahead=readahead,
+                          tolerant=tolerant)
     try:
         for rec in it:
             if not int(rec.record_type) & types_value:
@@ -1233,6 +1313,7 @@ def iter_records_parallel(paths: Iterable[str], *,
                           mp_context: str | None = None,
                           transport: str | None = None,
                           readahead: bool | None = None,
+                          tolerant: bool = False,
                           supervise: bool = False,
                           max_respawns: int = 3,
                           hang_timeout_s: float | None = None) -> Iterator:
@@ -1246,7 +1327,10 @@ def iter_records_parallel(paths: Iterable[str], *,
     selects which. ``workers=0`` is the serial fallback (identical
     output, one process). ``supervise=True`` retries worker deaths
     mid-shard, resuming exactly after the records already delivered (see
-    :class:`ParallelWarcPool`).
+    :class:`ParallelWarcPool`). ``tolerant=True`` makes each worker's
+    parser recover from damaged records (only intact survivors are
+    streamed back; the ledger stays in the worker — ``build_index``
+    reports the damage).
     """
     from repro_torch.core.warc import WarcRecordType
 
@@ -1257,10 +1341,12 @@ def iter_records_parallel(paths: Iterable[str], *,
         for p in paths:
             yield from _extract_records(p, types_value=int(record_types),
                                         parse_http=parse_http,
-                                        readahead=readahead)
+                                        readahead=readahead,
+                                        tolerant=tolerant)
         return
     fn = functools.partial(_extract_records, types_value=int(record_types),
-                           parse_http=parse_http, readahead=readahead)
+                           parse_http=parse_http, readahead=readahead,
+                           tolerant=tolerant)
     with ParallelWarcPool(fn, workers=workers, chunk_size=chunk_size,
                           mp_context=mp_context, transport=transport,
                           frame_codec=(_encode_record, _decode_record),

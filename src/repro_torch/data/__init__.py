@@ -1,1 +1,2 @@
-"""Synthetic corpus generation."""
+"""Data: synthetic corpora, the byte tokenizer, sequence packing and the
+WARC → token training loader."""

@@ -100,7 +100,11 @@
 //   thread's D / 16 output columns of each row stay in registers (a float4
 //   chunk for D >= 64, two or one columns for D = 32, 16); P goes through
 //   shared memory to the P V product. KV tiles wholly above the diagonal
-//   of the block's last row are never loaded.
+//   of the block's last row are never loaded. For training, a sibling
+//   entry (flash_attention_fwd_lse) runs this path on any f32 shape and
+//   also writes each row's log-sum-exp m + log l ([B, H, Sq] f32; 1e30
+//   on a row with no key), which the backward in flash_attention_bwd.cu
+//   recomputes the probabilities from; the serve entry passes no lse.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -117,6 +121,7 @@ constexpr int kBc = 64;        // keys per KV tile, every path
 constexpr int kPad = 4;        // floats of padding per shared-memory row
 constexpr int kDecodeRows = 16;
 constexpr float kNegInf = -1e30f;
+constexpr float kLseEmpty = 1e30f;  // lse of a row with no key
 
 // ---------------------------------------------------------------------------
 // CUDA-core paths (B1, B3)
@@ -173,12 +178,14 @@ constexpr size_t smem_bytes() {
 }
 
 // B3. q/k/v strides are in elements (batch, head, sequence); the last
-// axis is contiguous. out is a contiguous [B, H, Sq, D] tensor. Grid
-// (row tiles, B * Hkv); every key up to the block's diagonal.
+// axis is contiguous. out is a contiguous [B, H, Sq, D] tensor, lse a
+// contiguous [B, H, Sq] or null. Grid (row tiles, B * Hkv); every key up
+// to the block's diagonal.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out, int H,
+                 const float* __restrict__ v, float* __restrict__ out,
+                 float* __restrict__ lse, int H,
                  int Hkv, int Sq, int Sk, int causal, float scale,
                  int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb,
                  int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh,
@@ -371,8 +378,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int g = g0 + ty * RPT + a;
     const int h = kvh * group + g / Sq;
     const float inv = 1.f / (l[a] == 0.f ? 1.f : l[a]);
-    float* orow =
-        out + ((static_cast<int64_t>(b) * H + h) * Sq + pos_a[a]) * D;
+    const int64_t row = (static_cast<int64_t>(b) * H + h) * Sq + pos_a[a];
+    float* orow = out + row * D;
 #pragma unroll
     for (int n = 0; n < kNch; ++n) {
       float o[kVec];
@@ -380,6 +387,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int e = 0; e < kVec; ++e) o[e] = acc[a][n * kVec + e] * inv;
       store_out<kVec>(orow + (tx + 16 * n) * kVec, o);
     }
+    // m and l are the same in the row's 16 lanes
+    if (lse != nullptr && tx == 0)
+      lse[row] = l[a] == 0.f ? kLseEmpty : m[a] + logf(l[a]);
   }
 }
 
@@ -1335,9 +1345,9 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
 }
 
 template <int D>
-int launch_cc(const void* q, const void* k, const void* v, void* out, int B,
-              int H, int Hkv, int Sq, int Sk, int causal, const int64_t* st,
-              cudaStream_t stream) {
+int launch_cc(const void* q, const void* k, const void* v, void* out,
+              float* lse, int B, int H, int Hkv, int Sq, int Sk, int causal,
+              const int64_t* st, cudaStream_t stream) {
   auto kern = flash_fwd_kernel<D>;
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -1348,8 +1358,8 @@ int launch_cc(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid((rows + 16 * kRpt - 1) / (16 * kRpt), B * Hkv);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), H, Hkv, Sq, Sk,
-      causal, 1.0f / std::sqrt(static_cast<float>(D)), st[0], st[1], st[2],
+      static_cast<const float*>(v), static_cast<float*>(out), lse, H, Hkv, Sq,
+      Sk, causal, 1.0f / std::sqrt(static_cast<float>(D)), st[0], st[1], st[2],
       st[3], st[4], st[5], st[6], st[7], st[8]);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1390,11 +1400,11 @@ int dispatch_decode(const void* q, const void* k, const void* v, void* out,
 }
 
 template <int D>
-int dispatch_d(const void* q, const void* k, const void* v, void* out, int B,
-               int H, int Hkv, int Sq, int Sk, int dtype, int causal,
-               const int64_t* st, int n_splits, void* ws, void* counters,
-               cudaStream_t s) {
-  if ((H / Hkv) * Sq <= kDecodeRows) {  // B1
+int dispatch_d(const void* q, const void* k, const void* v, void* out,
+               float* lse, int B, int H, int Hkv, int Sq, int Sk, int dtype,
+               int causal, const int64_t* st, int n_splits, void* ws,
+               void* counters, cudaStream_t s) {
+  if (lse == nullptr && (H / Hkv) * Sq <= kDecodeRows) {  // B1
     return dtype == 0
                ? dispatch_decode<D, float>(q, k, v, out, B, H, Hkv, Sq, Sk,
                                            causal, st, n_splits, ws, counters,
@@ -1406,7 +1416,8 @@ int dispatch_d(const void* q, const void* k, const void* v, void* out, int B,
   if (dtype == 1) {  // B2
     return launch_tc<D>(q, k, v, out, B, H, Hkv, Sq, Sk, causal, st, s);
   }
-  return launch_cc<D>(q, k, v, out, B, H, Hkv, Sq, Sk, causal, st, s);  // B3
+  return launch_cc<D>(q, k, v, out, lse, B, H, Hkv, Sq, Sk, causal, st,
+                      s);  // B3
 }
 
 }  // namespace
@@ -1421,23 +1432,28 @@ int dispatch_d(const void* q, const void* k, const void* v, void* out, int B,
 // Decode ((H / Hkv) * Sq <= 16) splits the keys n_splits ways (1 <= n_splits
 // <= ceil(Sk / 64)); for n_splits > 1, ws holds B * Hkv * n_splits * 16 *
 // (D + 2) floats and counters B * Hkv zeroed int32s, which the launch
-// leaves zeroed (launches sharing them must be stream-ordered). Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for
-// arguments the kernel does not take.
+// leaves zeroed (launches sharing them must be stream-ordered).
+// lse is null on the serve path. Non-null (f32 only) it is a contiguous
+// [B, H, Sq] f32 that the f32 prefill path (B3), taken then on any shape,
+// fills with each row's log-sum-exp of its scaled scores, m + log l (1e30
+// on a row with no key), for the backward (flash_attention_bwd.cu).
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
+// for arguments the kernel does not take.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* out, int64_t B,
-                                   int64_t H, int64_t Hkv, int64_t Sq,
-                                   int64_t Sk, int64_t D, int dtype,
-                                   int causal, const int64_t* strides,
-                                   int64_t n_splits, void* ws, void* counters,
-                                   void* stream) {
-  const bool decode = Hkv >= 1 && H % Hkv == 0 && (H / Hkv) * Sq <= kDecodeRows;
+                                   const void* v, void* out, void* lse,
+                                   int64_t B, int64_t H, int64_t Hkv,
+                                   int64_t Sq, int64_t Sk, int64_t D,
+                                   int dtype, int causal,
+                                   const int64_t* strides, int64_t n_splits,
+                                   void* ws, void* counters, void* stream) {
+  const bool decode = lse == nullptr && Hkv >= 1 && H % Hkv == 0 &&
+                      (H / Hkv) * Sq <= kDecodeRows;
   const int64_t stride_mult = dtype == 0 ? 4 : 8;  // 16 bytes
   bool bad = B < 1 || Hkv < 1 || H < Hkv || H % Hkv || Sq < 1 || Sk < 1 ||
              (D != 16 && D != 32 && D != 64 && D != 128) ||
-             (dtype != 0 && dtype != 1) || B * Hkv > 65535 ||
-             (H / Hkv) * Sq > (int64_t{1} << 30) || Sk > (int64_t{1} << 30) ||
-             ((H / Hkv) * Sq + 63) / 64 > 65535;
+             (dtype != 0 && dtype != 1) || (lse != nullptr && dtype != 0) ||
+             B * Hkv > 65535 || (H / Hkv) * Sq > (int64_t{1} << 30) ||
+             Sk > (int64_t{1} << 30) || ((H / Hkv) * Sq + 63) / 64 > 65535;
   if (decode) {
     const int64_t tiles = (Sk + kBc - 1) / kBc;
     bad = bad || n_splits < 1 || n_splits > tiles ||
@@ -1448,21 +1464,22 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     bad = bad || reinterpret_cast<uintptr_t>(p) % 16 != 0;
   if (bad) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
+  auto l = static_cast<float*>(lse);
   const int b = static_cast<int>(B), h = static_cast<int>(H),
             hkv = static_cast<int>(Hkv), sq = static_cast<int>(Sq),
             sk = static_cast<int>(Sk), ns = static_cast<int>(n_splits);
   switch (D) {
     case 16:
-      return dispatch_d<16>(q, k, v, out, b, h, hkv, sq, sk, dtype, causal,
+      return dispatch_d<16>(q, k, v, out, l, b, h, hkv, sq, sk, dtype, causal,
                             strides, ns, ws, counters, s);
     case 32:
-      return dispatch_d<32>(q, k, v, out, b, h, hkv, sq, sk, dtype, causal,
+      return dispatch_d<32>(q, k, v, out, l, b, h, hkv, sq, sk, dtype, causal,
                             strides, ns, ws, counters, s);
     case 64:
-      return dispatch_d<64>(q, k, v, out, b, h, hkv, sq, sk, dtype, causal,
+      return dispatch_d<64>(q, k, v, out, l, b, h, hkv, sq, sk, dtype, causal,
                             strides, ns, ws, counters, s);
     default:
-      return dispatch_d<128>(q, k, v, out, b, h, hkv, sq, sk, dtype, causal,
-                             strides, ns, ws, counters, s);
+      return dispatch_d<128>(q, k, v, out, l, b, h, hkv, sq, sk, dtype,
+                             causal, strides, ns, ws, counters, s);
   }
 }

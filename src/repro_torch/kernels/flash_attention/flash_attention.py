@@ -16,7 +16,10 @@ three paths the C entry point picks from shape and type:
   head) per device and stream, which each launch leaves zeroed (so
   launches that share it are stream-ordered);
 * bf16 prefill: ``wgmma`` tensor cores fed by TMA;
-* f32 prefill: CUDA cores.
+* f32 prefill: CUDA cores. Training calls take it through
+  :func:`flash_attention_fwd_lse` on any f32 shape: the same entry
+  point, given an ``lse`` buffer, also writes each row's log-sum-exp
+  for the backward (:mod:`repro_torch.kernels.flash_attention.backward`).
 
 Every path reads rows in 16-byte chunks, so the tensors must start on a
 16-byte boundary with strides of whole chunks (4 f32 or 8 bf16 values).
@@ -25,7 +28,7 @@ Every path reads rows in 16-byte chunks, so the tensors must start on a
 anything it does not take; the plain version for CPU tensors is
 :func:`repro_torch.kernels.flash_attention.ref.attention_plain`, chosen by
 :func:`repro_torch.kernels.flash_attention.flash_attention`. ``launches``
-counts CUDA launches.
+counts CUDA launches of the kernel, by either wrapper.
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ import ctypes
 import torch
 
 __all__ = ["HEAD_DIMS", "check_shapes", "decode_splits",
-           "flash_attention_bhsd", "launches"]
+           "flash_attention_bhsd", "flash_attention_fwd_lse", "launches"]
 
 HEAD_DIMS = (16, 32, 64, 128)  # the kernel's template instances
 DECODE_ROWS = 16  # (H // Hkv) * Sq up to this takes the split-KV decode path
@@ -55,7 +58,7 @@ def _entry():
         from repro_torch.kernels._build import library
 
         fn = library("flash_attention").flash_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 6
                        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                           ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
                           ctypes.c_void_p])
@@ -108,23 +111,20 @@ def decode_splits(batch: int, kv_heads: int, sk: int) -> int:
     return max(1, min(-(-tiles // SPLIT_TILES), SMS // (batch * kv_heads)))
 
 
-def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True) -> torch.Tensor:
-    """Launch the CUDA kernel on q [B,H,Sq,D], k/v [B,Hkv,Sk,D] (all on one
-    CUDA device); returns a new contiguous [B,H,Sq,D] in q's dtype. Does
-    not synchronise."""
+def _launch_strides(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> list[int]:
+    """Check what every launch needs; returns the 9 element strides
+    (batch, head, sequence of q, k, v)."""
     check_shapes(q, k, v)
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must lie on one CUDA device")
     if q.dtype not in _DTYPES:
         raise ValueError(f"dtype {q.dtype} not supported (float32, bfloat16)")
-    B, H, Sq, D = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
+    B, D, Hkv = q.shape[0], q.shape[3], k.shape[1]
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D} not supported (one of {HEAD_DIMS})")
     if B * Hkv > 65535:
         raise ValueError(f"batch x kv heads = {B * Hkv} exceeds 65535")
-    decode = (H // Hkv) * Sq <= DECODE_ROWS
     # every path reads rows in 16-byte chunks (the bf16 prefill's K and V
     # by TMA): 16-byte aligned tensors with strides of whole chunks
     mult = 16 // q.element_size()
@@ -139,6 +139,17 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 f"multiples of {mult} elements (16 bytes; the bf16 prefill "
                 f"loads K and V by TMA)")
         strides += st
+    return strides
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool, lse: torch.Tensor | None) -> torch.Tensor:
+    """One launch of the C entry point; ``lse`` (f32 only) routes it to
+    the f32 prefill path and is filled there."""
+    strides = _launch_strides(q, k, v)
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    decode = lse is None and (H // Hkv) * Sq <= DECODE_ROWS
     fn = _entry()
     out = torch.empty((B, H, Sq, D), dtype=q.dtype, device=q.device)
     n_splits = decode_splits(B, Hkv, Sk) if decode else 1
@@ -151,6 +162,7 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              dtype=torch.float32, device=q.device)
             counters = _split_counters(q.device, stream, B * Hkv)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 None if lse is None else lse.data_ptr(),
                  B, H, Hkv, Sq, Sk, D, _DTYPES[q.dtype], int(bool(causal)),
                  ctypes.cast(st_arr, ctypes.c_void_p), n_splits,
                  None if ws is None else ws.data_ptr(),
@@ -161,3 +173,26 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     global launches
     launches += 1
     return out
+
+
+def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True) -> torch.Tensor:
+    """Launch the CUDA kernel on q [B,H,Sq,D], k/v [B,Hkv,Sk,D] (all on one
+    CUDA device); returns a new contiguous [B,H,Sq,D] in q's dtype. Does
+    not synchronise."""
+    return _launch(q, k, v, causal, None)
+
+
+def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = True
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The f32 prefill path on any f32 shape (decode-sized ones too),
+    also returning each row's log-sum-exp of its scaled scores: ``(out
+    [B,H,Sq,D], lse [B,H,Sq] float32)``, ``lse`` 1e30 on a row with no
+    key. What a training forward saves for the backward. Does not
+    synchronise."""
+    if q.dtype != torch.float32:
+        raise ValueError(f"the lse path takes float32, not {q.dtype}")
+    B, H, Sq = q.shape[:3]
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    return _launch(q, k, v, causal, lse), lse

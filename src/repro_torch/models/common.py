@@ -6,8 +6,9 @@ names (``Dense.w``/``Dense.b``, ``RMSNorm.scale``, ``SwiGLU.gate``/
 ``up``/``down``), and the module-level functions (``dense``,
 ``rmsnorm``, ``swiglu``) apply them with the reference's math. Dense weights keep the reference's ``[d_in, d_out]``
 layout, so ``dense`` is ``x @ w (+ b)`` and a JAX tree carries across
-unchanged. Parameters are created with ``requires_grad=False``: this
-slice serves, it does not train.
+unchanged. Parameters are created with ``requires_grad=False``, so
+serving builds no graph; training turns grad on for them
+(:func:`repro_torch.train.step.init_train_state`).
 
 Initialisers take an explicit CPU ``torch.Generator`` and draw from the
 reference's distributions (dense: uniform ±1/√d_in, embedding:

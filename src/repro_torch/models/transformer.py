@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM (dense, GQA + RoPE) for serving.
+"""Decoder-only transformer LM (dense, GQA + RoPE): serving and training.
 
 The reference stacks every layer leaf on a leading ``n_layers`` axis and
 scans over it; here the layers are an ``nn.ModuleList`` of :class:`Layer`
@@ -6,6 +6,7 @@ modules, applied in a Python loop. The module-level functions keep the
 reference's names so a reader finds the counterparts:
 
   * :func:`forward`      — logits for teacher forcing ([B,S] tokens)
+  * :func:`loss_fn`      — next-token CE through :func:`fused_ce_loss`
   * :func:`decode_step`  — one-token serve step against a KV cache
   * :func:`init_cache`   — the decode cache
 
@@ -15,8 +16,21 @@ prefill is causal with ``Sq == Sk``; a decode step attends its one query
 row over the cache's first ``length + 1`` positions, where the kernel's
 bottom-right causal offset ``Sk - Sq`` keeps every one of them.
 
+With grad enabled (training), the flash call takes its autograd path:
+the forward keeps each row's log-sum-exp and the backward is the
+hand-written backward kernel. ``cfg.remat`` recomputes each layer in the
+backward (``torch.utils.checkpoint``, non-reentrant), as the reference's
+``jax.checkpoint`` of its scanned layer does; the recompute launches the
+forward kernel again.
+
+Parameters stay one leaf a layer; :func:`stack_named` and
+:func:`unstack_tree` map them (and any tree keyed like them: optimizer
+moments, error-feedback state) to and from the reference's layout, every
+layer leaf stacked on ``[n_layers]`` (:func:`params_to_jax`,
+:func:`params_from_jax`).
+
 MoE configurations raise ``NotImplementedError`` (they come with
-``models/moe.py``); ``loss_fn``/``fused_ce_loss`` wait for training.
+``models/moe.py``).
 """
 from __future__ import annotations
 
@@ -25,6 +39,7 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.kernels.flash_attention import flash_attention
@@ -33,8 +48,10 @@ from .common import (Dense, RMSNorm, SwiGLU, dense, dense_init, embed_init,
                      frozen, rmsnorm, rmsnorm_init, swiglu, swiglu_init)
 
 __all__ = ["Layer", "Transformer", "TransformerConfig", "decode_step",
-           "forward", "forward_hidden", "init_cache", "init_params",
-           "params_from_jax"]
+           "forward", "forward_hidden", "fused_ce_loss", "init_cache",
+           "init_params", "loss_fn", "map_tree", "params_from_jax",
+           "params_to_jax", "stack_named", "tensor_tree", "to_numpy",
+           "unstack_tree"]
 
 
 @dataclass(frozen=True)
@@ -156,13 +173,13 @@ def init_params(cfg: TransformerConfig, *, generator: torch.Generator,
                        head).to(dev)
 
 
-def _tensors(tree: dict) -> dict:
+def tensor_tree(tree: dict) -> dict:
     """``tree`` with every leaf (numpy array, ml_dtypes bf16 array or
     tensor) as a CPU tensor; numpy leaves are copied."""
     out = {}
     for key, a in tree.items():
         if isinstance(a, dict):
-            out[key] = _tensors(a)
+            out[key] = tensor_tree(a)
         elif isinstance(a, torch.Tensor):
             out[key] = a
         else:
@@ -182,6 +199,76 @@ def _dense_from(p: dict, i: int | None = None) -> Dense:
     return Dense(w, b)
 
 
+def _put(tree: dict, path: list[str], leaf) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = leaf
+
+
+def stack_named(named: dict) -> dict:
+    """Leaves keyed by the port's parameter names (``"embed"``,
+    ``"layers.3.wq.w"``, ``"ln_f.scale"``, ...) as the reference's tree:
+    nested dicts, each ``layers.<i>.<path>`` leaf stacked over ``i`` on a
+    leading ``[n_layers]`` axis at ``["layers"][<path>]``."""
+    tree: dict = {}
+    per_layer: dict[tuple, dict[int, torch.Tensor]] = {}
+    for name, leaf in named.items():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            per_layer.setdefault(tuple(parts[2:]), {})[int(parts[1])] = leaf
+        else:
+            _put(tree, parts, leaf)
+    for path, by_layer in per_layer.items():
+        _put(tree, ["layers", *path],
+             torch.stack([by_layer[i] for i in range(len(by_layer))]))
+    return tree
+
+
+def unstack_tree(tree: dict) -> dict:
+    """Inverse of :func:`stack_named`: ``name -> leaf`` (the layer leaves
+    as views of the stacked ones)."""
+    out: dict = {}
+
+    def walk(node: dict, prefix: list[str]) -> None:
+        for key, val in node.items():
+            if isinstance(val, dict):
+                walk(val, prefix + [key])
+            elif prefix[:1] == ["layers"]:
+                for i in range(val.shape[0]):
+                    out[".".join(["layers", str(i), *prefix[1:], key])] = val[i]
+            else:
+                out[".".join(prefix + [key])] = val
+
+    walk(tree, [])
+    return out
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t`` as numpy (bfloat16 as ``ml_dtypes.bfloat16``,
+    imported only for such a leaf)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy().copy()
+
+
+def params_to_jax(params: Transformer) -> dict:
+    """The port's parameters as the reference's tree of numpy arrays
+    (layer leaves stacked on ``[n_layers]``): the inverse of
+    :func:`params_from_jax`."""
+    tree = stack_named({n: p.detach()
+                        for n, p in params.named_parameters()})
+    return map_tree(tree, to_numpy)
+
+
+def map_tree(tree: dict, fn) -> dict:
+    """``tree`` (nested dicts) with ``fn`` applied to every leaf."""
+    return {k: map_tree(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
 def params_from_jax(tree: dict, *,
                     device: "str | torch.device" = "cuda") -> Transformer:
     """The reference's parameter tree (numpy arrays, or tensors) as the
@@ -192,7 +279,7 @@ def params_from_jax(tree: dict, *,
     Dense weights keep their ``[d_in, d_out]`` layout unchanged.
     """
     dev = resolve_device(device)
-    t = _tensors(tree)
+    t = tensor_tree(tree)
     lt = t["layers"]
     _dense_only("moe" in lt)
     layers = [Layer(ln1=RMSNorm(lt["ln1"]["scale"][i]),
@@ -231,19 +318,30 @@ def _ffn_block(lp: Layer, x: torch.Tensor) -> torch.Tensor:
     return x + swiglu(lp.mlp, rmsnorm(lp.ln2, x))
 
 
+def _layer(lp: Layer, x: torch.Tensor, cfg: TransformerConfig,
+           cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    return _ffn_block(lp, _attention_block(lp, x, cfg, cos, sin))
+
+
 def forward_hidden(params: Transformer, tokens, cfg: TransformerConfig
                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """tokens [B, S] -> (final hidden [B, S, d], aux_loss = 0)."""
+    """tokens [B, S] -> (final hidden [B, S, d], aux_loss = 0).
+
+    With grad enabled and ``cfg.remat``, each layer is checkpointed: its
+    activations are recomputed in the backward instead of kept."""
     _dense_only(cfg.is_moe)
     dev = params.device
-    tokens = torch.as_tensor(tokens, device=dev)
+    tokens = torch.as_tensor(tokens, device=dev).long()
     S = tokens.shape[1]
     x = params.embed[tokens]
     cos, sin = rope_cos_sin(torch.arange(S, device=dev), cfg.d_head,
                             cfg.rope_theta)
+    remat = cfg.remat and torch.is_grad_enabled()
     for lp in params.layers:
-        x = _attention_block(lp, x, cfg, cos, sin)
-        x = _ffn_block(lp, x)
+        if remat:
+            x = checkpoint(_layer, lp, x, cfg, cos, sin, use_reentrant=False)
+        else:
+            x = _layer(lp, x, cfg, cos, sin)
     return (rmsnorm(params.ln_f, x),
             torch.zeros((), dtype=torch.float32, device=dev))
 
@@ -253,6 +351,51 @@ def forward(params: Transformer, tokens, cfg: TransformerConfig
     """tokens [B, S] -> (logits [B, S, V], aux_loss = 0)."""
     x, aux = forward_hidden(params, tokens, cfg)
     return dense(params.lm_head, x), aux
+
+
+def _chunk_nll(head: Dense, xs: torch.Tensor, ls: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(sum of the chunk's token NLLs, count of its labels != -1)."""
+    logits = dense(head, xs).to(torch.float32)          # [B, c, V]
+    lse = torch.logsumexp(logits, dim=-1)               # [B, c]
+    mask = ls != -1
+    safe = torch.where(mask, ls, 0)
+    label_logit = logits.gather(-1, safe[..., None])[..., 0]
+    nll = torch.where(mask, lse - label_logit, 0.0)
+    return nll.sum(), mask.sum()
+
+
+def fused_ce_loss(head: Dense, x: torch.Tensor, labels,
+                  chunk_s: int = 512) -> torch.Tensor:
+    """lm_head + cross entropy, chunked over the sequence dim: each chunk
+    projects one [B, chunk, d] slice and reduces it to (logsumexp,
+    label-logit) pairs; with grad enabled the chunk's logits are
+    recomputed in the backward (never all [B, S, V] at once). Labels of
+    -1 are ignored; the mean is over the rest."""
+    B, S, _ = x.shape
+    labels = torch.as_tensor(labels, device=x.device).long()
+    chunk_s = min(chunk_s, S)
+    while S % chunk_s:
+        chunk_s //= 2
+    nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = torch.zeros((), dtype=torch.int64, device=x.device)
+    for c0 in range(0, S, chunk_s):
+        xs, ls = x[:, c0:c0 + chunk_s], labels[:, c0:c0 + chunk_s]
+        if torch.is_grad_enabled():
+            s, c = checkpoint(_chunk_nll, head, xs, ls, use_reentrant=False)
+        else:
+            s, c = _chunk_nll(head, xs, ls)
+        nll_sum = nll_sum + s
+        count = count + c
+    return nll_sum / torch.clamp(count, min=1)
+
+
+def loss_fn(params: Transformer, tokens, labels,
+            cfg: TransformerConfig) -> torch.Tensor:
+    """Mean next-token cross entropy (+ the aux loss, 0 for dense)."""
+    x, aux = forward_hidden(params, tokens, cfg)
+    return fused_ce_loss(params.lm_head, x, labels) \
+        + cfg.aux_loss_weight * aux
 
 
 # --------------------------------------------------------------------------

@@ -1,1 +1,2 @@
-"""Training-side modules the serving path needs: checkpoint restore."""
+"""Training: optimizer, train step, gradient compression, checkpoints and
+straggler monitoring."""

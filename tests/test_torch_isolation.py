@@ -1,9 +1,12 @@
 """``repro_torch`` and ``chip_smoke.py`` run without JAX and without the
 reference package (index build, CDX search, columnar derive and search,
 index verification, the sharded gateway, LM forward and serving, the
-process pool — in its forked and its spawned workers too — and the codec
+process pool — in its forked and its spawned workers too — the codec
 slice: LZ4 and zstd shards, the decoder child process, tolerant parsing
-and the WARCIO baseline); every path but zstd's also runs without
+and the WARCIO baseline — and the training slice: packing, the text
+pipeline, the token loader serial and with pool workers, attention's
+gradient, the microbatched step with gradient compression, checkpoints
+and ``train_lm`` with a resume); every path but zstd's also runs without
 ``zstandard``; and the port's entry points default to the GPU."""
 import ast
 import os
@@ -154,6 +157,48 @@ pooled_store.close()
 kids = map_shards(_blocked_in_child, paths, workers=2, mp_context="spawn")
 assert [k[0] for k in kids] == [10, 10], kids
 assert all(k[1:] == (["jax", "repro"], []) for k in kids), kids
+# the training slice: the text pipeline and the token loader (serial
+# and with forked pool workers), attention's gradient, a microbatched
+# step with gradient compression, checkpoints, and train_lm with a resume
+from repro_torch.core.parallel import iter_documents_parallel
+from repro_torch.core.pipeline import iter_documents, web_graph_from_warcs
+from repro_torch.data.loader import WarcTokenLoader
+from repro_torch.data.packing import SequencePacker, pad_batch
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.launch.train import train_lm
+from repro_torch.train import checkpoint as ckpt
+from repro_torch.train.optimizer import AdamWConfig
+from repro_torch.train.step import init_train_state, make_train_step
+docs = [x.text for p in paths for x in iter_documents(p, min_length=0)]
+assert docs and docs == [x.text for x in iter_documents_parallel(
+    paths, workers=2, ordered=True, min_length=0)]
+assert web_graph_from_warcs(paths, workers=2)["hosts"]
+assert pad_batch(SequencePacker(4).feed(np.arange(9)), 3, 4).shape == (3, 5)
+loaders = [WarcTokenLoader(paths, batch=2, seq_len=16, prefetch=0,
+                           min_doc_len=0, workers=w) for w in (0, 2)]
+batches = [[next(g).copy() for _ in range(3)]
+           for g in (ld.batches() for ld in loaders)]
+assert all(np.array_equal(a, b) for a, b in zip(*batches))
+for ld in loaders:
+    ld.close()
+q = torch.randn(1, 4, 8, 32, requires_grad=True)
+kv = torch.randn(1, 2, 8, 32)
+(g,) = torch.autograd.grad(flash_attention(q, kv, kv).sum(), (q,))
+assert g.shape == q.shape and bool(torch.isfinite(g).all())
+state = init_train_state(params, use_grad_compression=True)
+step = make_train_step(
+    lambda p, b: tf.loss_fn(p, b["tokens"], b["labels"], cfg),
+    AdamWConfig(), n_microbatches=2, use_grad_compression=True)
+tokens = np.ones((2, 9), np.int32)
+state, metrics = step(state, {"tokens": tokens[:, :-1],
+                              "labels": tokens[:, 1:]})
+ckpt.save(f"{d}/ck", 1, state, extras={"step": 1})
+state, extras = ckpt.restore(f"{d}/ck", state)
+assert extras == {"step": 1} and state["opt"]["step"] == 1
+kw = dict(shards=paths, batch=2, seq_len=16, reduced=True, ckpt_every=1,
+          device="cpu", ckpt_dir=f"{d}/run")
+assert train_lm(steps=1, **kw)["steps"] == 1
+assert train_lm(steps=2, **kw)["steps"] == 2
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")
        and sys.modules[m] is not None]
 assert not bad, bad
@@ -296,9 +341,12 @@ def _default_device_calls(entry: str, path: str) -> list:
         return torch.zeros(shape, device=resolve_device("cuda"))
 
     if entry == "build_index":
+        from repro_torch.launch.train import train_lm
+
         return [lambda: build_index([path]),
                 lambda: tf.init_params(cfg, generator=gen),
-                lambda: tf.init_cache(cfg, 1, 8)]
+                lambda: tf.init_cache(cfg, 1, 8),
+                lambda: train_lm(shards=[path], steps=1)]
     params = tf.init_params(cfg, generator=gen, device="cpu")
     index = build_index([path], device="cpu")
     group = np.zeros((2, 16 + 128), np.uint8)
