@@ -7,7 +7,8 @@ and regex searches over CDX+seek; the same corpus → ``columnar.derive``
 row-groups; ``verify_index`` over the whole index; the sharded
 ``ArchiveGateway`` serving the searches to concurrent clients; the
 ``fastwarc_lm`` byte-level LM at full width prefilling and serving prompts
-taken from the corpus — and holds every kernel of those paths against its
+taken from the corpus; Qwen3-30B-A3B, a mixture of experts, at full width
+in bf16 doing the same — and holds every kernel of those paths against its
 plain PyTorch version:
 
 1. corpus: 4 gzip shards of ``CorpusSpec(n_pages=10_000, seed=i)`` written
@@ -134,7 +135,29 @@ plain PyTorch version:
     its losses within rtol 1e-5 (and whether bit-identical); the loader
     restored from that checkpoint's cursor giving the uninterrupted
     loader's batches bit for bit, and ``WarcTokenLoader(workers=2)``
-    (forkserver workers) the serial loader's 20 batches.
+    (forkserver workers) the serial loader's 20 batches;
+15. MoE serving (run last, after every earlier phase has released its
+    device memory): (a) the reduced ``qwen3_moe_30b_a3b`` (f32, d_head
+    16, 8 experts, top-2) on the card, forward over 2 x 64 tokens within
+    rtol/atol 2e-4 of the CPU forward (logits and aux) and its engine's
+    greedy tokens equal to the CPU engine's; (b) ``qwen3_moe_30b_a3b`` at
+    full width (48 layers, d_model 2048, 32 query heads over 4 KV heads,
+    128 experts top-8, d_ff 768, vocab 151,936; 30,532,110,336 bf16
+    parameters drawn on the card from a CUDA ``torch.Generator``); (c)
+    the ``serve_1k`` batch (8 x 1,024 tokens of corpus payloads) layer by
+    layer: each layer's dropped assignments, and at layer 0 ``moe_apply``
+    against ``moe_apply_plain`` on its normalised hidden states (the same
+    experts and drops, outputs within 2^-6 x (|plain| + rms)); (d)
+    ``forward`` over that batch, warm-up + 5 timed runs, 48 flash
+    launches a forward, finite logits, one profiled forward; (e)
+    ``ServeEngine(batch_size=8, max_seq=1024, temperature=0)`` over 8
+    corpus prompts of one length in 32-64 bytes, 16 new tokens each;
+    against ``forward`` over the prompt and the engine's tokens (capacity
+    factor E/k: nothing drops, as in the engine's batch-8 decode): every
+    step's logits within 0.25 of forward's, every generated token
+    forward's argmax wherever forward's top-2 gap exceeds 0.5, the
+    near-ties counted; a profiled decode window; (f)
+    the model freed and the device memory back where it was.
 
 The ``kernels`` line holds each kernel against its plain version on the
 inputs it is then timed on, at its main path's dominant shape; besides,
@@ -156,15 +179,17 @@ Phase 4 also holds ``flash_attention_bhsd`` against its plain version on
 each of its three paths: f32 prefill (CUDA cores) at the prefill shape,
 a non-causal shape, ``Sq = Sk = 37`` and head dims 32 and 16; the
 split-KV decode (``Sq = 1``) over cache views of 1, 256 and 1,000 keys
-(f32) and 2,000 keys (bf16, d_head 128); bf16 prefill on tensor cores
-(``wgmma`` + TMA) at InternLM2-1.8B's attention and head dims 32 and 16;
+(f32), 2,000 keys (bf16, d_head 128) and Qwen3-30B-A3B's decode (bf16,
+GQA group 8, 1,024 keys); bf16 prefill on tensor cores (``wgmma`` + TMA)
+at InternLM2-1.8B's and Qwen3-30B-A3B's attention (group 8, q [8, 32,
+1024, 128]) and head dims 32 and 16;
 ``Sq = 256, Sk = 128`` causal in both types (rows with no key exactly
 0). Each case is timed beside its plain version and
 ``scaled_dot_product_attention``.
 
 The launch count of each kernel is set to 0 before each path (phases 5,
-6, 7, 8, 9, 10, 11, 12 (b) and (c), 13 (b)-(f), 14 (c)) and read after
-it; every kernel of a path must have launched. The ``kernels`` line
+6, 7, 8, 9, 10, 11, 12 (b) and (c), 13 (b)-(f), 14 (c), 15 (d)) and read
+after it; every kernel of a path must have launched. The ``kernels`` line
 carries the backward kernel too (no Pallas counterpart: the reference
 differentiates ``chunked_attention`` under XLA), its launches (calls)
 and ``cuda_launches`` those of phase 14 (c).
@@ -240,7 +265,10 @@ from repro_torch.configs import get_spec  # noqa: E402
 from repro_torch.core.warc import WarcRecordType  # noqa: E402
 from repro_torch.data.tokenizer import BOS_ID, encode  # noqa: E402
 from repro_torch.kernels.flash_attention import attention_plain  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.models.attention import rope_cos_sin  # noqa: E402
+from repro_torch.models.common import rmsnorm  # noqa: E402
 
 # the kernel modules (the packages' ``adler32`` and ``flash_attention``
 # names are the checksum function and the attention wrapper)
@@ -841,6 +869,10 @@ FLASH_CASES = (
     ("decode Sk=1000", 8, 12, 4, 1, 1000, 64, torch.float32, True),
     ("decode bf16 Sk=2000", 8, 16, 8, 1, 2000, 128, torch.bfloat16, True),
     ("internlm2-1.8b bf16", 1, 16, 8, 2048, 2048, 128, torch.bfloat16, True),
+    ("qwen3-moe bf16 prefill", 8, 32, 4, 1024, 1024, 128, torch.bfloat16,
+     True),
+    ("decode qwen3-moe bf16 Sk=1024", 8, 32, 4, 1, 1024, 128,
+     torch.bfloat16, True),
     ("non-causal", 2, 12, 4, 512, 700, 64, torch.float32, False),
     ("fully masked rows", 1, 4, 2, 256, 128, 64, torch.float32, True),
     ("fully masked rows bf16", 1, 4, 2, 256, 128, 64, torch.bfloat16, True),
@@ -1757,15 +1789,17 @@ def span_sum(name: str) -> float:
     return h["sum"] if h else 0.0
 
 
-def decode_profile(params, cfg, batch: int, seq: int, length: int) -> dict:
-    """Device time of the engine's decode steps: 16 ``decode_step`` calls
-    on a batch-``batch`` cache holding ``length`` positions, timed on the
-    host clock, then again under ``torch.profiler`` for the device time
-    by kernel; busy share = device time / unprofiled wall time."""
+def decode_profile(params, cfg, batch: int, seq: int, length: int,
+                   n_steps: int = 16) -> dict:
+    """Device time of the engine's decode steps: ``n_steps``
+    ``decode_step`` calls on a batch-``batch`` cache holding ``length``
+    positions, timed on the host clock, then again under
+    ``torch.profiler`` for the device time by kernel; busy share = device
+    time / unprofiled wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     def steps(cache, tok):
-        for _ in range(16):
+        for _ in range(n_steps):
             logits, cache = tf.decode_step(params, cache, tok, cfg)
             tok = logits.argmax(-1)
         torch.cuda.synchronize()
@@ -1784,16 +1818,12 @@ def decode_profile(params, cfg, batch: int, seq: int, length: int) -> dict:
                                  ProfilerActivity.CUDA]) as prof:
             steps(cache, tok)
     wall = min(walls[1:])
-    by_kernel: dict = {}  # device-side events only: an aten op's row
-    for e in prof.key_averages():  # repeats its kernels' device time
-        t = e.self_device_time_total
-        if t > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
-            by_kernel[e.key] = by_kernel.get(e.key, 0.0) + t / 1e6
+    by_kernel = kernel_times(prof)
     device = sum(by_kernel.values())
     flash = sum(t for k, t in by_kernel.items()
                 if "flash_fwd" in k or "flash_decode" in k)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
-    return {"steps": 16, "cache_length": length, "wall_s": wall,
+    return {"steps": n_steps, "cache_length": length, "wall_s": wall,
             "device_s": device if device else None,
             "busy_share": device / wall if device else None,
             "flash_s": flash, "top_kernels_s": top}
@@ -2733,6 +2763,428 @@ def codec_phase(workdir: Path, results: dict) -> None:
         f"{out['launches']}")
 
 
+# -- phase 15 --------------------------------------------------------------
+MOE_ARCH = "qwen3_moe_30b_a3b"
+MOE_PREFILL_RUNS = 5         # timed prefill forwards after one warm-up
+MOE_NEW_TOKENS = 16          # the engine's new tokens a request
+MOE_PROMPT_BYTES = (32, 64)  # the engine's common prompt length, drawn here
+# moe_apply against moe_apply_plain on the card, both bf16: the same
+# products in other GEMM shapes and the combine summed in another order,
+# so each bf16 rounding (h, the expert output, the sum) may land an ulp
+# apart; 2^-6 is 4 ulps of the element, or of the output's rms where the
+# k terms cancel
+MOE_DISPATCH_TOL = 2.0 ** -6
+# the engine's tokens against forward's argmax are held where forward's
+# top-2 logit gap exceeds this margin. Both paths round through 48 bf16
+# layers in other shapes (decode vs prefill attention, GEMV vs GEMM), so
+# their logits differ by some bf16 ulps (2^-6 for logits in [2, 4)): the
+# largest difference over every position, 0.1062 on the H100 (0.0938 and
+# 0.0996 over the generated ones in two earlier runs), is held below half
+# the margin, 16 ulps; a token can flip only where the gap is below twice
+# that difference
+MOE_TIE_MARGIN = 2.0 ** -1
+
+
+def kernel_times(prof) -> dict:
+    """Device seconds by kernel name from a ``torch.profiler`` run
+    (device-side events only: an aten op's row repeats its kernels')."""
+    by_kernel: dict = {}
+    for e in prof.key_averages():
+        t = e.self_device_time_total
+        if t > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[e.key] = by_kernel.get(e.key, 0.0) + t / 1e6
+    return by_kernel
+
+
+def forward_profile(params, cfg, tokens: torch.Tensor) -> dict:
+    """One ``forward`` over ``tokens`` under ``torch.profiler``: device
+    time by kernel against an unprofiled run's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        tf.forward(params, tokens, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            tf.forward(params, tokens, cfg)
+            torch.cuda.synchronize()
+    by_kernel = kernel_times(prof)
+    device = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_s": wall, "device_s": device if device else None,
+            "busy_share": device / wall if device else None,
+            "top_kernels_s": top}
+
+
+def moe_reduced_check(payloads: list[bytes]) -> dict:
+    """(a) The reduced Qwen3-MoE as its spec defines it (f32, d_head 16,
+    8 experts, top-2) on the card: forward over 2 x 64 seeded tokens
+    within rtol/atol 2e-4 of the CPU forward (logits and aux) with the
+    same seeded weights, and the engine's greedy tokens for 4 corpus
+    prompts equal to the CPU engine's."""
+    cfg = get_spec(MOE_ARCH).reduced
+    gpu = tf.init_params(cfg, generator=torch.Generator().manual_seed(SEED))
+    cpu = tf.init_params(cfg, generator=torch.Generator().manual_seed(SEED),
+                         device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 15).integers(
+        0, cfg.vocab, (2, 64)))
+    before = fa.launches
+    with torch.inference_mode():
+        got, aux = tf.forward(gpu, tokens.cuda(), cfg)
+        torch.cuda.synchronize()
+        want, aux_w = tf.forward(cpu, tokens, cfg)
+    diff = float((got.cpu() - want).abs().max())
+    try:
+        torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+        torch.testing.assert_close(aux.cpu(), aux_w, rtol=2e-4, atol=2e-4)
+    except AssertionError as exc:
+        raise RuntimeError(f"reduced {cfg.name}: card != CPU forward: "
+                           f"{exc}") from None
+    prompts = [p[:48] for p in payloads[:4]]
+    outs = []
+    for params, dev in ((gpu, "cuda"), (cpu, "cpu")):
+        engine = ServeEngine(cfg, params, batch_size=2, max_seq=96,
+                             temperature=0.0, device=dev)
+        outs.append([r.out_tokens for r in engine.serve(
+            [Request(p, max_new_tokens=16) for p in prompts])])
+    torch.cuda.synchronize()
+    launches = fa.launches - before
+    if outs[0] != outs[1] or launches <= 0:
+        raise RuntimeError(f"reduced {cfg.name}: engine tokens card "
+                           f"{outs[0]} != CPU {outs[1]} (or no launch: "
+                           f"{launches})")
+    log(f"[moe] (a) reduced {cfg.name} ({cfg.moe_experts} experts, top-"
+        f"{cfg.moe_top_k}, d_head {cfg.d_head}) on the card: forward "
+        f"[2, 64] == CPU forward, max |card - CPU| = {diff:.3g}, aux "
+        f"{float(aux):.6f} (CPU {float(aux_w):.6f}); greedy tokens of 4 "
+        f"prompts == the CPU engine's ({sum(map(len, outs[0]))} tokens); "
+        f"{launches} flash_attention launches")
+    return {"max_abs_diff_vs_cpu": diff, "aux": float(aux),
+            "engine_tokens": sum(map(len, outs[0])), "launches": launches}
+
+
+def moe_layer_walk(params, cfg, tokens: torch.Tensor) -> dict:
+    """(c) The prefill batch layer by layer (the blocks ``forward`` runs):
+    each layer's dropped assignments, and at layer 0 ``moe_apply``
+    against ``moe_apply_plain`` on its normalised hidden states — the
+    same chosen experts, the same kept assignments, outputs within
+    ``MOE_DISPATCH_TOL``."""
+    B, S = tokens.shape
+    kw = {"top_k": cfg.moe_top_k, "capacity_factor": cfg.capacity_factor}
+    cos, sin = rope_cos_sin(torch.arange(S, device="cuda"), cfg.d_head,
+                            cfg.rope_theta)
+    drops, out = [], {}
+    with torch.inference_mode():
+        x = params.embed[tokens]
+        for i, lp in enumerate(params.layers):
+            x = tf._attention_block(lp, x, cfg, cos, sin)
+            h = rmsnorm(lp.ln2, x).reshape(B * S, cfg.d_model)
+            r = moe.moe_route(lp.moe, h, **kw)
+            drops.append(r.dropped)
+            y, aux = moe.moe_apply(lp.moe, h, **kw)
+            if i == 0:
+                out = moe_dispatch_check(lp.moe, h, r, y, aux, kw)
+            x = x + y.view(B, S, cfg.d_model)
+    out.update(drops_by_layer=drops, dropped=sum(drops),
+               assignments=B * S * cfg.moe_top_k * cfg.n_layers)
+    log(f"[moe] (c) prefill [{B}, {S}] layer by layer: {sum(drops)} of "
+        f"{out['assignments']} assignments dropped over {cfg.n_layers} "
+        f"layers (capacity {out['capacity']} slots an expert a layer; per "
+        f"layer {min(drops)}-{max(drops)}, layer 0 {drops[0]})")
+    return out
+
+
+def moe_dispatch_check(p, h, r, y, aux, kw: dict) -> dict:
+    p_out, p_aux, experts, kept = moe.moe_apply_plain(p, h, **kw)
+    torch.cuda.synchronize()
+    k = kw["top_k"]
+    if not torch.equal(r.experts.reshape(-1, k), experts):
+        raise RuntimeError("moe_apply and moe_apply_plain chose other "
+                           "experts on the card")
+    if not torch.equal(r.kept.reshape(-1, k), kept):
+        raise RuntimeError("moe_apply and moe_apply_plain dropped other "
+                           "assignments on the card")
+    rms = float(p_out.float().pow(2).mean().sqrt())
+    err = float((y.float() - p_out.float()).abs().max())
+    try:
+        torch.testing.assert_close(y.float(), p_out.float(),
+                                   rtol=MOE_DISPATCH_TOL,
+                                   atol=MOE_DISPATCH_TOL * rms)
+        torch.testing.assert_close(aux, p_aux, rtol=1e-5, atol=1e-7)
+    except AssertionError as exc:
+        raise RuntimeError(f"moe_apply != moe_apply_plain on the card: "
+                           f"{exc}") from None
+    ms = time_ms(lambda: moe.moe_apply(p, h, **kw), 5)
+    pms = time_ms(lambda: moe.moe_apply_plain(p, h, **kw), 3)
+    dropped = int((~kept).sum())
+    log(f"[moe] (c) layer 0: moe_apply == moe_apply_plain on the card: the "
+        f"same experts and the same {dropped} dropped assignments of "
+        f"{kept.numel()}; max |dispatch - plain| = {err:.3g} (output rms "
+        f"{rms:.3g}, tolerance {MOE_DISPATCH_TOL:.3g} x (|plain| + rms)), "
+        f"aux {float(aux):.6f}; {ms:.3f} ms dispatched, {pms:.3f} ms plain")
+    return {"layer0_dropped": dropped, "capacity": r.capacity,
+            "layer0_max_abs_err": err, "layer0_out_rms": rms,
+            "moe_apply_ms": ms, "moe_apply_plain_ms": pms}
+
+
+def moe_engine_check(params, cfg, done: list, step_logits: list,
+                     prompt_tokens: int) -> dict:
+    """(e) The engine's steps against one ``forward`` over each prompt
+    and the engine's generated tokens (teacher forcing), with
+    ``capacity_factor = E / k`` so no assignment drops: the function the
+    engine's decode steps compute (``C = 8`` slots at batch 8: nothing
+    can drop). Over every position of every row, prompt and generated,
+    the largest |forward - decode step| logit must stay below half of
+    ``MOE_TIE_MARGIN``; each generated token must be forward's argmax
+    wherever forward's top-2 gap exceeds the margin (else a near-tie)."""
+    rows = [[BOS_ID, *encode(r.prompt).tolist(), *r.out_tokens[:-1]]
+            for r in done]
+    width = max(map(len, rows))
+    ids = torch.tensor([row + [0] * (width - len(row)) for row in rows],
+                       device="cuda")
+    no_drop = cfg.scaled(capacity_factor=cfg.moe_experts / cfg.moe_top_k)
+    with torch.inference_mode():
+        logits, _ = tf.forward(params, ids, no_drop)
+        steps = torch.stack(step_logits[:width], dim=1)   # [B, width, V]
+        diff = 0.0
+        for j, row in enumerate(rows):  # a finished row's later steps
+            n = len(row)                # ran on tokens it did not record
+            diff = max(diff, float((logits[j, :n].float()
+                                    - steps[j, :n].float()).abs().max()))
+        del steps
+    near, mismatch, checked, min_gap = 0, [], 0, float("inf")
+    for j, r in enumerate(done):
+        top = logits[j, prompt_tokens - 1:prompt_tokens - 1
+                     + len(r.out_tokens)].float().topk(2, dim=-1)
+        gaps = (top.values[:, 0] - top.values[:, 1]).tolist()
+        for i, (t, want, gap) in enumerate(zip(
+                r.out_tokens, top.indices[:, 0].tolist(), gaps)):
+            min_gap = min(min_gap, gap)
+            if gap <= MOE_TIE_MARGIN:
+                near += 1
+            elif want != t:
+                mismatch.append((j, i, t, want, gap))
+            else:
+                checked += 1
+    if mismatch:
+        raise RuntimeError(f"engine tokens != forward's argmax past the "
+                           f"margin (request, position, engine, forward, "
+                           f"gap): {mismatch}")
+    if diff >= MOE_TIE_MARGIN / 2:
+        raise RuntimeError(f"|forward - decode step| logits reach {diff} "
+                           f">= {MOE_TIE_MARGIN / 2}: past bf16 rounding, "
+                           f"and the near-tie margin no longer covers them")
+    return {"checked": checked, "near_ties": near, "min_top2_gap": min_gap,
+            "positions_compared": sum(map(len, rows)),
+            "max_abs_logit_diff_forward_vs_decode": diff}
+
+
+def moe_full_width(payloads: list[bytes], rng) -> dict:
+    """(b)-(e) Qwen3-30B-A3B at full width in bf16."""
+    cfg = get_spec(MOE_ARCH).config
+    batch = get_spec("fastwarc_lm").shape("serve_1k").params["global_batch"]
+    seq = get_spec("fastwarc_lm").shape("serve_1k").params["seq_len"]
+    out: dict = {"model": cfg.name, "step_s": {}}
+    t_lap = [time.perf_counter()]
+
+    def lap(name: str) -> None:  # seconds since the previous lap
+        now = time.perf_counter()
+        out["step_s"][name] = now - t_lap[0]
+        t_lap[0] = now
+
+    # (b) weights drawn on the card
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tf.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    out["load_s"] = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in params.parameters())
+    kinds = {(t.device.type, t.dtype) for t in params.parameters()}
+    if n_params != cfg.param_count() or n_params != 30_532_110_336 or \
+            kinds != {("cuda", torch.bfloat16)}:
+        raise RuntimeError(f"{n_params} parameters ({kinds}); the config "
+                           f"says {cfg.param_count()}")
+    out.update(parameters=n_params,
+               active_parameters=cfg.active_param_count(),
+               weights_bytes=2 * n_params,
+               after_load_bytes=torch.cuda.memory_allocated(),
+               load_peak_bytes=torch.cuda.max_memory_allocated())
+    log(f"[moe] (b) {cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} q heads / {cfg.n_kv_heads} kv heads "
+        f"(group {cfg.n_heads // cfg.n_kv_heads}), d_head {cfg.d_head}, "
+        f"{cfg.moe_experts} experts top-{cfg.moe_top_k}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab}, {cfg.dtype}: {n_params} parameters "
+        f"({cfg.active_param_count()} active a token) drawn on the card "
+        f"from a CUDA generator seeded {SEED} in {out['load_s']:.3f} s; "
+        f"{out['after_load_bytes']} bytes allocated after the load (peak "
+        f"{out['load_peak_bytes']})")
+
+    pick = rng.choice(len(payloads), 2 * batch, replace=False)
+    tokens = np.stack([np.concatenate(
+        ([BOS_ID], encode(payloads[i][:seq - 1]))) for i in pick[:batch]])
+    tok_d = torch.from_numpy(tokens).cuda()
+    lap("load")
+    out.update(moe_layer_walk(params, cfg, tok_d))
+    lap("layer walk")
+
+    # (d) prefill
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = 0
+    times, logits = [], None
+    with torch.inference_mode():
+        for run in range(MOE_PREFILL_RUNS + 1):  # run 0 warms up
+            logits = None
+            t0 = time.perf_counter()
+            logits, aux = tf.forward(params, tok_d, cfg)
+            torch.cuda.synchronize()
+            if run:
+                times.append(time.perf_counter() - t0)
+    prefill_launches = fa.launches
+    if prefill_launches != cfg.n_layers * (MOE_PREFILL_RUNS + 1):
+        raise RuntimeError(f"{prefill_launches} flash_attention launches in "
+                           f"{MOE_PREFILL_RUNS + 1} forwards, not "
+                           f"{cfg.n_layers} each")
+    if logits.shape != (batch, seq, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()) or not np.isfinite(float(aux)):
+        raise RuntimeError(f"prefill logits {tuple(logits.shape)} or aux "
+                           f"not finite, or of the wrong shape")
+    prefill_s = float(np.median(times))
+    out.update(prefill_shape=[batch, seq], prefill_runs_s=times,
+               prefill_s=prefill_s,
+               prefill_tokens_per_s=batch * seq / prefill_s,
+               prefill_peak_bytes=torch.cuda.max_memory_allocated(),
+               aux=float(aux))
+    logits = None
+    lap("prefill")
+    out["prefill_profile"] = forward_profile(params, cfg, tok_d)
+    lap("prefill profile")
+    log(f"[moe] (d) prefill forward [{batch}, {seq}]: median of "
+        f"{MOE_PREFILL_RUNS} {prefill_s * 1e3:.3f} ms (runs "
+        f"{', '.join(f'{t * 1e3:.3f}' for t in times)} ms) = "
+        f"{batch * seq / prefill_s:.1f} prefill tokens/s; "
+        f"{prefill_launches} flash_attention launches ({cfg.n_layers} a "
+        f"forward); logits finite, aux {out['aux']:.6f}; peak device "
+        f"memory {out['prefill_peak_bytes']} bytes; profiled forward: "
+        + profile_line(out["prefill_profile"]))
+
+    # (e) the engine: 8 corpus prompts of one length, 16 new tokens each
+    plen = int(rng.integers(MOE_PROMPT_BYTES[0], MOE_PROMPT_BYTES[1] + 1))
+    prompts = [payloads[i][:plen] for i in pick[batch:]]
+    engine = ServeEngine(cfg, params, batch_size=batch, max_seq=seq,
+                         temperature=0.0, device="cuda")
+    step_logits: list = []
+    decode_step = tf.decode_step
+
+    def recording_step(*args, **kw):  # keeps each step's logits
+        logits, cache = decode_step(*args, **kw)
+        step_logits.append(logits)
+        return logits, cache
+
+    prev = trace.enable(True)
+    spans0 = {k: span_sum(k) for k in ("serve.prefill", "serve.decode")}
+    torch.cuda.reset_peak_memory_stats()
+    before = fa.launches
+    tf.decode_step = recording_step
+    t0 = time.perf_counter()
+    try:
+        done = engine.serve([Request(p, max_new_tokens=MOE_NEW_TOKENS)
+                             for p in prompts])
+    finally:
+        tf.decode_step = decode_step
+        trace.enable(prev)
+    wall = time.perf_counter() - t0
+    lap("engine")
+    engine_launches = fa.launches - before
+    peak = torch.cuda.max_memory_allocated()
+    spans = {k: span_sum(k) - spans0[k] for k in spans0}
+    generated = engine.stats["tokens_generated"]
+    if engine_launches != cfg.n_layers * len(step_logits) or not all(
+            r.done and 0 < len(r.out_tokens) <= MOE_NEW_TOKENS
+            and all(0 <= t < cfg.vocab for t in r.out_tokens)
+            for r in done):
+        raise RuntimeError(f"engine: {engine_launches} flash_attention "
+                           f"launches over {len(step_logits)} steps, or a "
+                           f"request unfinished")
+    decode_cap = moe.expert_capacity(batch * cfg.moe_top_k, cfg.moe_experts,
+                                     cfg.moe_top_k,
+                                     max(cfg.capacity_factor, 2.0))
+    check = moe_engine_check(params, cfg, done, step_logits, plen + 1)
+    del step_logits
+    lap("engine check")
+    prof = decode_profile(params, cfg, batch, seq, plen + 1, n_steps=2)
+    lap("decode profile")
+    out.update(
+        prompt_bytes=plen, engine_requests=len(done),
+        tokens_generated=generated, engine_wall_s=wall,
+        serve_prefill_s=spans["serve.prefill"],
+        serve_decode_s=spans["serve.decode"],
+        decode_tokens_per_s=generated / spans["serve.decode"],
+        engine_peak_bytes=peak, decode_capacity=decode_cap,
+        decode_profile=prof, tie_margin=MOE_TIE_MARGIN, **check,
+        flash_launches={"moe prefill": prefill_launches,
+                        "moe engine": engine_launches})
+    log(f"[moe] (e) ServeEngine(batch_size={batch}, max_seq={seq}, greedy): "
+        f"{len(done)} requests of {plen} payload bytes, {generated} tokens "
+        f"generated in {wall:.3f} s; serve.prefill "
+        f"{spans['serve.prefill']:.3f} s, serve.decode "
+        f"{spans['serve.decode']:.3f} s = "
+        f"{out['decode_tokens_per_s']:.1f} decode tokens/s; "
+        f"{engine_launches} flash_attention launches; peak device memory "
+        f"{peak} bytes; decode capacity {decode_cap} slots an expert "
+        f"(batch {batch}: nothing drops); {check['checked']} tokens == "
+        f"forward's argmax, {check['near_ties']} near-ties (top-2 gap <= "
+        f"{MOE_TIE_MARGIN}, smallest gap {check['min_top2_gap']:.4g}); "
+        f"max |forward - decode step| logit "
+        f"{check['max_abs_logit_diff_forward_vs_decode']:.4g} over "
+        f"{check['positions_compared']} positions (limit "
+        f"{MOE_TIE_MARGIN / 2}); decode "
+        f"profile, 2 steps at cache length {plen + 1}: "
+        + profile_line(prof))
+    return out
+
+
+def profile_line(prof: dict) -> str:
+    if prof["device_s"] is None:
+        return "the profiler saw no device time (busy share not measured)"
+    return (f"wall {prof['wall_s'] * 1e3:.3f} ms, device "
+            f"{prof['device_s'] * 1e3:.3f} ms, busy share "
+            f"{prof['busy_share']:.4f}; top kernels (ms): "
+            + "; ".join(f"{k[:60]} {t * 1e3:.3f}"
+                        for k, t in prof["top_kernels_s"]))
+
+
+def moe_phase(paths: list[str], results: dict) -> None:
+    """Phase 15: Qwen3-30B-A3B served at full width on the card."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    log(f"[moe] device memory allocated before the phase: {before} bytes")
+    payloads = response_payloads(paths[0], 512)
+    t0 = time.perf_counter()
+    out = {"reduced": moe_reduced_check(payloads)}
+    out["reduced"]["s"] = time.perf_counter() - t0
+    out.update(moe_full_width(payloads, np.random.default_rng(SEED + 15)))
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated()
+    out.update(allocated_before=before, allocated_after=after)
+    if after > before + (64 << 20):
+        raise RuntimeError(f"phase 15 left {after - before} bytes allocated")
+    out["phase_s"] = time.perf_counter() - t_phase
+    results["moe"] = out
+    log(f"[moe] (f) model freed: {after} bytes allocated (before the phase "
+        f"{before}); phase 15 in {out['phase_s']:.3f} s ((a) "
+        f"{out['reduced']['s']:.3f} s; "
+        + ", ".join(f"{k} {v:.3f}" for k, v in out["step_s"].items())
+        + " s)")
+
+
 def timed_err(name: str, kernel, plain) -> int:
     """max |kernel - plain| on the inputs the kernels line times; raises
     unless the two agree exactly."""
@@ -3162,7 +3614,8 @@ def kernel_line(results: dict, store: ColumnStore) -> dict:
                    "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:93",
          "launches": (results["flash_launches"]
-                      + results["train"]["launches"]["flash_attention"]),
+                      + results["train"]["launches"]["flash_attention"]
+                      + sum(results["moe"]["flash_launches"].values())),
          "max_abs_err": err["flash_attention"],
          "ms": fl["ms"], "plain_ms": fl["plain_ms"],
          "bound_ms": fl["bound_ms"], "bound_by": fl["bound_by"],
@@ -3173,7 +3626,8 @@ def kernel_line(results: dict, store: ColumnStore) -> dict:
          "max_abs_err_bf16": err["flash_attention_bf16"],
          "launches_by_phase": {
              **results["lm"]["flash_launches"],
-             "train_lm": results["train"]["launches"]["flash_attention"]},
+             "train_lm": results["train"]["launches"]["flash_attention"],
+             **results["moe"]["flash_launches"]},
          "train_1k_lse_ms": bw["fwd_lse_ms"],
          "cases": {label: {k: c[k] for k in (
              "shape_q", "shape_kv", "dtype", "causal", "ms", "plain_ms",
@@ -3259,6 +3713,7 @@ def main() -> int:
     finally:
         stop_mp_helpers()
     codec_phase(workdir, results)
+    moe_phase(paths, results)
     codec = results["codecs"]["launches"]
 
     launches = {"digest_sig (build)": results["digest_sig_launches"],
@@ -3283,6 +3738,10 @@ def main() -> int:
                     results["lm"]["flash_launches"]["engine"],
                 "flash_attention (train_lm)":
                     results["train"]["launches"]["flash_attention"],
+                "flash_attention (MoE prefill)":
+                    results["moe"]["flash_launches"]["moe prefill"],
+                "flash_attention (MoE engine)":
+                    results["moe"]["flash_launches"]["moe engine"],
                 "flash_attention_backward (train_lm)":
                     results["train"]["launches"]["flash_attention_backward"],
                 **{f"{k}, codecs": v for k, v in codec.items()}}

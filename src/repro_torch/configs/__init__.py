@@ -3,9 +3,10 @@
 Each ``<id>.py`` defines ``SPEC: ArchSpec`` with the exact published
 config, its input-shape set, and a reduced config for CPU smoke tests
 (copies of the reference's entries). The registry lists only the
-architectures the port carries: the paper's ``fastwarc_lm`` and
-``internlm2_1_8b`` (dense GQA LMs); the MoE, GNN and recsys
-architectures follow with their model families.
+architectures the port carries, in the reference's order: the LM family
+(the Qwen3 MoE configs, the dense GQA configs and the paper's
+``fastwarc_lm``); the GNN and recsys architectures follow with their
+model families.
 """
 from __future__ import annotations
 
@@ -16,6 +17,10 @@ from typing import Any
 __all__ = ["ARCH_IDS", "ArchSpec", "ShapeSpec", "get_spec", "lm_shapes"]
 
 ARCH_IDS = [
+    "qwen3_moe_235b_a22b",
+    "qwen3_moe_30b_a3b",
+    "starcoder2_3b",
+    "qwen25_32b",
     "internlm2_1_8b",
     # the paper's own end-to-end config (WARC-pipeline-fed LM)
     "fastwarc_lm",

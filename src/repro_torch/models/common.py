@@ -10,10 +10,13 @@ unchanged. Parameters are created with ``requires_grad=False``, so
 serving builds no graph; training turns grad on for them
 (:func:`repro_torch.train.step.init_train_state`).
 
-Initialisers take an explicit CPU ``torch.Generator`` and draw from the
+Initialisers take an explicit ``torch.Generator`` and draw from the
 reference's distributions (dense: uniform ±1/√d_in, embedding:
-N(0, 0.02²), norm scales: 1). They do not reproduce ``jax.random``'s
-bits; tests carry the reference's own parameters across instead
+N(0, 0.02²), norm scales: 1) on the generator's device: with a CUDA
+generator every leaf is made on the card, so a full-width model is never
+whole on the host. The same seed gives other bits on another device.
+They do not reproduce ``jax.random``'s bits; tests carry the reference's
+own parameters across instead
 (:func:`repro_torch.models.transformer.params_from_jax`).
 """
 from __future__ import annotations
@@ -26,7 +29,7 @@ from torch import nn
 
 __all__ = ["Dense", "RMSNorm", "SwiGLU", "dense", "dense_init",
            "embed_init", "frozen", "rmsnorm", "rmsnorm_init", "swiglu",
-           "swiglu_init"]
+           "swiglu_init", "uniform_init"]
 
 
 def frozen(t: torch.Tensor) -> nn.Parameter:
@@ -61,24 +64,34 @@ class SwiGLU(nn.Module):
 # initializers
 # --------------------------------------------------------------------------
 
+def uniform_init(shape: tuple, scale: float, *, generator: torch.Generator,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Uniform ±``scale`` of ``shape``, drawn in f32 on the generator's
+    device and cast to ``dtype``."""
+    w = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    return w.uniform_(-scale, scale, generator=generator).to(dtype)
+
+
 def dense_init(d_in: int, d_out: int, *, generator: torch.Generator,
                dtype: torch.dtype = torch.float32,
                bias: bool = False) -> Dense:
-    scale = 1.0 / math.sqrt(d_in)
-    w = torch.empty((d_in, d_out), dtype=torch.float32).uniform_(
-        -scale, scale, generator=generator)
-    b = torch.zeros((d_out,), dtype=dtype) if bias else None
-    return Dense(w.to(dtype), b)
+    w = uniform_init((d_in, d_out), 1.0 / math.sqrt(d_in),
+                     generator=generator, dtype=dtype)
+    b = (torch.zeros((d_out,), dtype=dtype, device=generator.device)
+         if bias else None)
+    return Dense(w, b)
 
 
 def embed_init(vocab: int, dim: int, *, generator: torch.Generator,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    return (torch.randn((vocab, dim), generator=generator,
-                        dtype=torch.float32) * 0.02).to(dtype)
+    e = torch.randn((vocab, dim), generator=generator, dtype=torch.float32,
+                    device=generator.device)
+    return e.mul_(0.02).to(dtype)
 
 
-def rmsnorm_init(dim: int, dtype: torch.dtype = torch.float32) -> RMSNorm:
-    return RMSNorm(torch.ones((dim,), dtype=dtype))
+def rmsnorm_init(dim: int, dtype: torch.dtype = torch.float32,
+                 device: "str | torch.device" = "cpu") -> RMSNorm:
+    return RMSNorm(torch.ones((dim,), dtype=dtype, device=device))
 
 
 def swiglu_init(d_model: int, d_ff: int, *, generator: torch.Generator,

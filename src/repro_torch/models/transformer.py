@@ -1,4 +1,5 @@
-"""Decoder-only transformer LM (dense, GQA + RoPE): serving and training.
+"""Decoder-only transformer LM (dense or MoE, GQA + RoPE): serving and
+training.
 
 The reference stacks every layer leaf on a leading ``n_layers`` axis and
 scans over it; here the layers are an ``nn.ModuleList`` of :class:`Layer`
@@ -29,8 +30,10 @@ moments, error-feedback state) to and from the reference's layout, every
 layer leaf stacked on ``[n_layers]`` (:func:`params_to_jax`,
 :func:`params_from_jax`).
 
-MoE configurations raise ``NotImplementedError`` (they come with
-``models/moe.py``).
+A MoE configuration's layers hold ``moe`` (:mod:`.moe`, the reference's
+grouped capacity dispatch) where a dense one's hold ``mlp``; ``forward``
+returns the reference's aux loss, the mean of the layers' Switch losses,
+and a decode step routes its batch with ``capacity_factor`` at least 2.
 """
 from __future__ import annotations
 
@@ -46,6 +49,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from .attention import cache_update, init_kv_cache, rope_cos_sin, rotate
 from .common import (Dense, RMSNorm, SwiGLU, dense, dense_init, embed_init,
                      frozen, rmsnorm, rmsnorm_init, swiglu, swiglu_init)
+from .moe import MoE, moe_apply, moe_init
 
 __all__ = ["Layer", "Transformer", "TransformerConfig", "decode_step",
            "forward", "forward_hidden", "fused_ce_loss", "init_cache",
@@ -105,23 +109,36 @@ class TransformerConfig:
         per_layer = attn + ffn + 2 * d
         return self.vocab * d * 2 + self.n_layers * per_layer + d
 
-
-def _dense_only(is_moe: bool) -> None:
-    if is_moe:
-        raise NotImplementedError(
-            "MoE configurations are not ported yet (models/moe.py)")
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top-k of E experts)."""
+        if not self.is_moe:
+            return self.param_count()
+        d = self.d_model
+        dh = self.d_head
+        attn = d * self.n_heads * dh + 2 * d * self.n_kv_heads * dh \
+            + self.n_heads * dh * d
+        ffn_active = d * self.moe_experts + 3 * self.moe_top_k * d * self.d_ff
+        per_layer = attn + ffn_active + 2 * d
+        return self.vocab * d * 2 + self.n_layers * per_layer + d
 
 
 class Layer(nn.Module):
     """One transformer layer: attention (``ln1``, ``wq``, ``wk``, ``wv``,
-    ``wo``) and a SwiGLU FFN (``ln2``, ``mlp``)."""
+    ``wo``) and an FFN (``ln2`` and either a SwiGLU ``mlp`` or a mixture
+    of experts ``moe``)."""
 
     def __init__(self, ln1: RMSNorm, ln2: RMSNorm, wq: Dense, wk: Dense,
-                 wv: Dense, wo: Dense, mlp: SwiGLU):
+                 wv: Dense, wo: Dense, mlp: SwiGLU | None = None,
+                 moe: MoE | None = None):
         super().__init__()
+        if (mlp is None) == (moe is None):
+            raise ValueError("a layer holds one FFN: mlp or moe")
         self.ln1, self.ln2 = ln1, ln2
         self.wq, self.wk, self.wv, self.wo = wq, wk, wv, wo
-        self.mlp = mlp
+        if mlp is not None:
+            self.mlp = mlp
+        else:
+            self.moe = moe
 
 
 class Transformer(nn.Module):
@@ -148,8 +165,13 @@ class Transformer(nn.Module):
 def _layer_init(cfg: TransformerConfig, g: torch.Generator) -> Layer:
     dt = cfg.torch_dtype
     d, dh = cfg.d_model, cfg.d_head
+    if cfg.is_moe:
+        ffn = {"moe": moe_init(d, cfg.d_ff, cfg.moe_experts, generator=g,
+                               dtype=dt)}
+    else:
+        ffn = {"mlp": swiglu_init(d, cfg.d_ff, generator=g, dtype=dt)}
     return Layer(
-        ln1=rmsnorm_init(d, dt), ln2=rmsnorm_init(d, dt),
+        ln1=rmsnorm_init(d, dt, g.device), ln2=rmsnorm_init(d, dt, g.device),
         wq=dense_init(d, cfg.n_heads * dh, generator=g, dtype=dt,
                       bias=cfg.qkv_bias),
         wk=dense_init(d, cfg.n_kv_heads * dh, generator=g, dtype=dt,
@@ -157,19 +179,21 @@ def _layer_init(cfg: TransformerConfig, g: torch.Generator) -> Layer:
         wv=dense_init(d, cfg.n_kv_heads * dh, generator=g, dtype=dt,
                       bias=cfg.qkv_bias),
         wo=dense_init(cfg.n_heads * dh, d, generator=g, dtype=dt),
-        mlp=swiglu_init(d, cfg.d_ff, generator=g, dtype=dt))
+        **ffn)
 
 
 def init_params(cfg: TransformerConfig, *, generator: torch.Generator,
                 device: "str | torch.device" = "cuda") -> Transformer:
-    """Seeded parameters from a CPU ``generator``, moved to ``device``."""
+    """Seeded parameters, each leaf drawn on ``generator``'s device (a
+    CUDA generator makes the model on the card, never whole on the
+    host), then moved to ``device``."""
     dev = resolve_device(device)
-    _dense_only(cfg.is_moe)
     dt = cfg.torch_dtype
     embed = embed_init(cfg.vocab, cfg.d_model, generator=generator, dtype=dt)
     layers = [_layer_init(cfg, generator) for _ in range(cfg.n_layers)]
     head = dense_init(cfg.d_model, cfg.vocab, generator=generator, dtype=dt)
-    return Transformer(embed, layers, rmsnorm_init(cfg.d_model, dt),
+    return Transformer(embed, layers,
+                       rmsnorm_init(cfg.d_model, dt, generator.device),
                        head).to(dev)
 
 
@@ -269,6 +293,17 @@ def map_tree(tree: dict, fn) -> dict:
             for k, v in tree.items()}
 
 
+def _ffn_from(lt: dict, i: int) -> dict:
+    """Layer ``i``'s FFN from the stacked tree: ``moe`` or ``mlp``."""
+    if "moe" in lt:
+        m = lt["moe"]
+        return {"moe": MoE(_dense_from(m["router"], i), m["gate"][i],
+                           m["up"][i], m["down"][i])}
+    m = lt["mlp"]
+    return {"mlp": SwiGLU(_dense_from(m["gate"], i), _dense_from(m["up"], i),
+                          _dense_from(m["down"], i))}
+
+
 def params_from_jax(tree: dict, *,
                     device: "str | torch.device" = "cuda") -> Transformer:
     """The reference's parameter tree (numpy arrays, or tensors) as the
@@ -281,14 +316,11 @@ def params_from_jax(tree: dict, *,
     dev = resolve_device(device)
     t = tensor_tree(tree)
     lt = t["layers"]
-    _dense_only("moe" in lt)
     layers = [Layer(ln1=RMSNorm(lt["ln1"]["scale"][i]),
                     ln2=RMSNorm(lt["ln2"]["scale"][i]),
                     wq=_dense_from(lt["wq"], i), wk=_dense_from(lt["wk"], i),
                     wv=_dense_from(lt["wv"], i), wo=_dense_from(lt["wo"], i),
-                    mlp=SwiGLU(_dense_from(lt["mlp"]["gate"], i),
-                               _dense_from(lt["mlp"]["up"], i),
-                               _dense_from(lt["mlp"]["down"], i)))
+                    **_ffn_from(lt, i))
               for i in range(lt["ln1"]["scale"].shape[0])]
     return Transformer(t["embed"], layers, RMSNorm(t["ln_f"]["scale"]),
                        _dense_from(t["lm_head"])).to(dev)
@@ -314,22 +346,33 @@ def _attention_block(lp: Layer, x: torch.Tensor, cfg: TransformerConfig,
     return x + dense(lp.wo, o)
 
 
-def _ffn_block(lp: Layer, x: torch.Tensor) -> torch.Tensor:
-    return x + swiglu(lp.mlp, rmsnorm(lp.ln2, x))
+def _ffn_block(lp: Layer, x: torch.Tensor, cfg: TransformerConfig,
+               capacity_factor: float
+               ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """x + FFN(ln2(x)), and the MoE's aux loss (None for a dense FFN)."""
+    h = rmsnorm(lp.ln2, x)
+    if cfg.is_moe:
+        B, S, d = h.shape
+        y, aux = moe_apply(lp.moe, h.reshape(B * S, d), top_k=cfg.moe_top_k,
+                           capacity_factor=capacity_factor)
+        return x + y.view(B, S, d), aux
+    return x + swiglu(lp.mlp, h), None
 
 
 def _layer(lp: Layer, x: torch.Tensor, cfg: TransformerConfig,
-           cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    return _ffn_block(lp, _attention_block(lp, x, cfg, cos, sin))
+           cos: torch.Tensor, sin: torch.Tensor
+           ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    return _ffn_block(lp, _attention_block(lp, x, cfg, cos, sin), cfg,
+                      cfg.capacity_factor)
 
 
 def forward_hidden(params: Transformer, tokens, cfg: TransformerConfig
                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """tokens [B, S] -> (final hidden [B, S, d], aux_loss = 0).
+    """tokens [B, S] -> (final hidden [B, S, d], aux_loss): the aux loss
+    is the mean of the MoE layers' Switch losses (0 for a dense model).
 
     With grad enabled and ``cfg.remat``, each layer is checkpointed: its
     activations are recomputed in the backward instead of kept."""
-    _dense_only(cfg.is_moe)
     dev = params.device
     tokens = torch.as_tensor(tokens, device=dev).long()
     S = tokens.shape[1]
@@ -337,18 +380,21 @@ def forward_hidden(params: Transformer, tokens, cfg: TransformerConfig
     cos, sin = rope_cos_sin(torch.arange(S, device=dev), cfg.d_head,
                             cfg.rope_theta)
     remat = cfg.remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
     for lp in params.layers:
         if remat:
-            x = checkpoint(_layer, lp, x, cfg, cos, sin, use_reentrant=False)
+            x, aux_l = checkpoint(_layer, lp, x, cfg, cos, sin,
+                                  use_reentrant=False)
         else:
-            x = _layer(lp, x, cfg, cos, sin)
-    return (rmsnorm(params.ln_f, x),
-            torch.zeros((), dtype=torch.float32, device=dev))
+            x, aux_l = _layer(lp, x, cfg, cos, sin)
+        if aux_l is not None:
+            aux = aux + aux_l
+    return rmsnorm(params.ln_f, x), aux / cfg.n_layers
 
 
 def forward(params: Transformer, tokens, cfg: TransformerConfig
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """tokens [B, S] -> (logits [B, S, V], aux_loss = 0)."""
+    """tokens [B, S] -> (logits [B, S, V], aux_loss)."""
     x, aux = forward_hidden(params, tokens, cfg)
     return dense(params.lm_head, x), aux
 
@@ -392,7 +438,8 @@ def fused_ce_loss(head: Dense, x: torch.Tensor, labels,
 
 def loss_fn(params: Transformer, tokens, labels,
             cfg: TransformerConfig) -> torch.Tensor:
-    """Mean next-token cross entropy (+ the aux loss, 0 for dense)."""
+    """Mean next-token cross entropy + ``aux_loss_weight`` × the aux loss
+    (0 for a dense model)."""
     x, aux = forward_hidden(params, tokens, cfg)
     return fused_ce_loss(params.lm_head, x, labels) \
         + cfg.aux_loss_weight * aux
@@ -418,14 +465,15 @@ def decode_step(params: Transformer, cache: dict, token: torch.Tensor,
     The new K/V are written in place at ``cache["length"]`` (the
     reference returns a new cache; the port saves the copy), then each
     layer attends its query over the first ``length + 1`` cached
-    positions through the flash kernel. ``length`` advances by one.
+    positions through the flash kernel. ``length`` advances by one. A MoE
+    FFN routes the step's ``B`` tokens with ``capacity_factor =
+    max(cfg.capacity_factor, 2.0)``, as the reference does.
 
     Past a full cache (``length >= max_seq``) the step does what the
     reference's one-hot insert does: it writes nothing, attends over all
     ``max_seq`` cached positions, keeps RoPE at the true position
     ``length`` and still advances ``length``.
     """
-    _dense_only(cfg.is_moe)
     B = token.shape[0]
     idx = cache["length"]
     full = idx >= cache["k"].shape[3]
@@ -451,7 +499,7 @@ def decode_step(params: Transformer, cache: dict, token: torch.Tensor,
         o = o.to(x.dtype).transpose(1, 2).reshape(
             B, 1, cfg.n_heads * cfg.d_head)
         x = x + dense(lp.wo, o)
-        x = _ffn_block(lp, x)
+        x, _ = _ffn_block(lp, x, cfg, max(cfg.capacity_factor, 2.0))
     x = rmsnorm(params.ln_f, x)
     logits = dense(params.lm_head, x)[:, 0]
     cache["length"] = idx + 1

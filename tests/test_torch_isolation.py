@@ -1,13 +1,14 @@
 """``repro_torch`` and ``chip_smoke.py`` run without JAX and without the
 reference package (index build, CDX search, columnar derive and search,
-index verification, the sharded gateway, LM forward and serving, the
-process pool — in its forked and its spawned workers too — the codec
-slice: LZ4 and zstd shards, the decoder child process, tolerant parsing
-and the WARCIO baseline — and the training slice: packing, the text
-pipeline, the token loader serial and with pool workers, attention's
-gradient, the microbatched step with gradient compression, checkpoints
-and ``train_lm`` with a resume); every path but zstd's also runs without
-``zstandard``; and the port's entry points default to the GPU."""
+index verification, the sharded gateway, LM forward and serving (dense
+and MoE), the process pool — in its forked and its spawned workers
+too — the codec slice: LZ4 and zstd shards, the decoder child process,
+tolerant parsing and the WARCIO baseline — and the training slice:
+packing, the text pipeline, the token loader serial and with pool
+workers, attention's gradient, the microbatched step with gradient
+compression, checkpoints and ``train_lm`` with a resume); every path but
+zstd's also runs without ``zstandard``; and the port's entry points
+default to the GPU."""
 import ast
 import os
 import subprocess
@@ -120,6 +121,25 @@ assert logits.shape == (2, 8, cfg.vocab) and bool(torch.isfinite(logits).all())
 engine = ServeEngine(cfg, params, batch_size=2, max_seq=32, device="cpu")
 done = engine.serve([Request(b"web", max_new_tokens=3), Request(b"x", 2)])
 assert [len(r.out_tokens) for r in done] == [3, 2] and all(r.done for r in done)
+# the MoE slice: the four configs it added, the reduced Qwen3-MoE forward
+# and engine, and the dispatch against its plain version
+from repro_torch.models import moe
+assert [get_spec(a).config.param_count() for a in (
+    "qwen3_moe_30b_a3b", "qwen3_moe_235b_a22b", "starcoder2_3b",
+    "qwen25_32b")] == [30532110336, 235093610496, 4312980480, 32763876352]
+mcfg = get_spec("qwen3_moe_30b_a3b").reduced
+mp = tf.init_params(mcfg, generator=torch.Generator().manual_seed(0),
+                    device="cpu")
+logits, aux = tf.forward(mp, np.ones((2, 8), np.int64), mcfg)
+assert logits.shape == (2, 8, mcfg.vocab) and float(aux) > 0
+hid = torch.randn(24, mcfg.d_model)
+got = moe.moe_apply(mp.layers[0].moe, hid, top_k=2, capacity_factor=0.5)
+want = moe.moe_apply_plain(mp.layers[0].moe, hid, top_k=2,
+                           capacity_factor=0.5)
+assert all(torch.allclose(a, b, atol=1e-6) for a, b in zip(got, want[:2]))
+done = ServeEngine(mcfg, mp, batch_size=2, max_seq=32, device="cpu").serve(
+    [Request(b"web", max_new_tokens=3)])
+assert done[0].done and 0 < len(done[0].out_tokens) <= 3
 # the codec slice: LZ4 and zstd shards through build, verify and
 # derive, a tolerant build of a damaged shard, the decoder child process
 # and the WARCIO baseline
@@ -345,6 +365,8 @@ def _default_device_calls(entry: str, path: str) -> list:
 
         return [lambda: build_index([path]),
                 lambda: tf.init_params(cfg, generator=gen),
+                lambda: tf.init_params(get_spec("qwen3_moe_30b_a3b").reduced,
+                                       generator=gen),
                 lambda: tf.init_cache(cfg, 1, 8),
                 lambda: train_lm(shards=[path], steps=1)]
     params = tf.init_params(cfg, generator=gen, device="cpu")
