@@ -149,14 +149,17 @@ plain PyTorch version:
     against ``moe_apply_plain`` on its normalised hidden states (the same
     experts and drops, outputs within 2^-6 x (|plain| + rms)); (d)
     ``forward`` over that batch, warm-up + 5 timed runs, 48 flash
-    launches a forward, finite logits, one profiled forward; (e)
+    launches a forward, every one on the bf16 tensor-core prefill path
+    (``prefill_tc``), finite
+    logits, one profiled forward (#7's device time beside the total); (e)
     ``ServeEngine(batch_size=8, max_seq=1024, temperature=0)`` over 8
     corpus prompts of one length in 32-64 bytes, 16 new tokens each;
     against ``forward`` over the prompt and the engine's tokens (capacity
     factor E/k: nothing drops, as in the engine's batch-8 decode): every
     step's logits within 0.25 of forward's, every generated token
     forward's argmax wherever forward's top-2 gap exceeds 0.5, the
-    near-ties counted; a profiled decode window; (f)
+    near-ties counted; 48 flash launches a step, every one on the
+    tensor-core decode path (``decode_tc``); a profiled decode window; (f)
     the model freed and the device memory back where it was.
 
 The ``kernels`` line holds each kernel against its plain version on the
@@ -176,16 +179,23 @@ kernel (``kernels/empty/csrc/empty.cu``) and ``torch.Tensor.copy_`` of
 read-flushed times are extra numbers.
 
 Phase 4 also holds ``flash_attention_bhsd`` against its plain version on
-each of its three paths: f32 prefill (CUDA cores) at the prefill shape,
-a non-causal shape, ``Sq = Sk = 37`` and head dims 32 and 16; the
+each of its paths, and reports the path each case took
+(``path_launches``): f32 prefill (CUDA cores) at the prefill shape, a
+non-causal shape, ``Sq = Sk = 37`` and head dims 32 and 16; the
 split-KV decode (``Sq = 1``) over cache views of 1, 256 and 1,000 keys
-(f32), 2,000 keys (bf16, d_head 128) and Qwen3-30B-A3B's decode (bf16,
-GQA group 8, 1,024 keys); bf16 prefill on tensor cores (``wgmma`` + TMA)
-at InternLM2-1.8B's and Qwen3-30B-A3B's attention (group 8, q [8, 32,
-1024, 128]) and head dims 32 and 16;
-``Sq = 256, Sk = 128`` causal in both types (rows with no key exactly
-0). Each case is timed beside its plain version and
-``scaled_dot_product_attention``.
+(f32, CUDA cores), and in bf16 on tensor cores over 2,000 keys (d_head
+128), Qwen3-30B-A3B's decode (GQA group 8, 1,024 keys), group 8 over
+1 and 777 keys and at batch 1 over 8,192; bf16 prefill on tensor cores
+(``wgmma`` + TMA, one warpgroup a block) at InternLM2-1.8B's and
+Qwen3-30B-A3B's attention (group 8, q [8, 32, 1024, 128]), group 8 at
+``Sq = Sk = 200`` and 1,000, non-causal, with q as ``attention()`` passes it (a
+``transpose(1, 2)`` view), and head dims 32 and 16; ``Sq = 256, Sk =
+128`` causal in both types and ``Sq = 256, Sk = 100`` at group 8 (rows
+with no key exactly 0). Each case must take the path its row names, and
+is timed beside its plain version and ``scaled_dot_product_attention``;
+a bf16 decode over 1,024 keys or more gets 7 medians of each, in turns,
+and is "faster" than SDPA only if every one of its medians is below
+every one of SDPA's.
 
 The launch count of each kernel is set to 0 before each path (phases 5,
 6, 7, 8, 9, 10, 11, 12 (b) and (c), 13 (b)-(f), 14 (c), 15 (d)) and read
@@ -214,6 +224,7 @@ import importlib
 import json
 import os
 import pstats
+import re
 import shutil
 import subprocess
 import sys
@@ -291,6 +302,7 @@ GW_REPEATS = 4              # ... phase 6's requests this many times
 PAD = 128                   # row-group zero tail (ROWGROUP_PAD)
 POOL_WORKERS = 4            # phase 12's pool (at most the CPU count)
 SLEEP_CYCLES = 4_000_000    # ~2 ms of device spin ahead of each timed call
+FLASH_DECODE_ROUNDS = 7     # medians of a long bf16 decode and of SDPA
 CDX_COLUMNS = ("shard_id", "offset", "comp_len", "uncomp_len", "rtype",
                "status", "digest", "signatures", "frame_off", "frame_base",
                "uri_off", "mime_off")
@@ -859,28 +871,53 @@ def flash_bound(nbytes: int, ops: int, dtype: torch.dtype
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-# label, B, H, Hkv, Sq, Sk, D, dtype, causal; "decode" cases read k/v as
-# views of a [B, Hkv, 1024, D] cache (2048 past 1,024 keys), as
-# decode_step does; "fully masked rows" cases have rows with no key
+# label, B, H, Hkv, Sq, Sk, D, dtype, causal, the path the C entry point
+# must take (flash_attention.PATHS); "decode" cases read k/v as
+# views of a [B, Hkv, S, D] cache (S: Sk rounded up to a multiple of
+# 1,024), as decode_step does; "fully masked rows" cases have rows with no key; a
+# "q^T" case passes q as attention() does, a transpose(1, 2) view of
+# [B, Sq, H, D]
 FLASH_CASES = (
-    ("prefill", 8, 12, 4, 1024, 1024, 64, torch.float32, True),
-    ("decode Sk=1", 8, 12, 4, 1, 1, 64, torch.float32, True),
-    ("decode Sk=256", 8, 12, 4, 1, 256, 64, torch.float32, True),
-    ("decode Sk=1000", 8, 12, 4, 1, 1000, 64, torch.float32, True),
-    ("decode bf16 Sk=2000", 8, 16, 8, 1, 2000, 128, torch.bfloat16, True),
-    ("internlm2-1.8b bf16", 1, 16, 8, 2048, 2048, 128, torch.bfloat16, True),
+    ("prefill", 8, 12, 4, 1024, 1024, 64, torch.float32, True, "prefill_cc"),
+    ("decode Sk=1", 8, 12, 4, 1, 1, 64, torch.float32, True, "decode"),
+    ("decode Sk=256", 8, 12, 4, 1, 256, 64, torch.float32, True, "decode"),
+    ("decode Sk=1000", 8, 12, 4, 1, 1000, 64, torch.float32, True, "decode"),
+    ("decode bf16 Sk=2000", 8, 16, 8, 1, 2000, 128, torch.bfloat16,
+     True, "decode_tc"),
+    ("internlm2-1.8b bf16", 1, 16, 8, 2048, 2048, 128, torch.bfloat16,
+     True, "prefill_tc"),
     ("qwen3-moe bf16 prefill", 8, 32, 4, 1024, 1024, 128, torch.bfloat16,
-     True),
-    ("decode qwen3-moe bf16 Sk=1024", 8, 32, 4, 1, 1024, 128,
-     torch.bfloat16, True),
-    ("non-causal", 2, 12, 4, 512, 700, 64, torch.float32, False),
-    ("fully masked rows", 1, 4, 2, 256, 128, 64, torch.float32, True),
-    ("fully masked rows bf16", 1, 4, 2, 256, 128, 64, torch.bfloat16, True),
-    ("ragged 37", 2, 12, 4, 37, 37, 64, torch.float32, True),
-    ("d32", 8, 4, 2, 512, 512, 32, torch.float32, True),
-    ("d32 bf16", 8, 4, 2, 512, 512, 32, torch.bfloat16, True),
-    ("d16", 8, 4, 2, 512, 512, 16, torch.float32, True),
-    ("d16 bf16", 8, 4, 2, 512, 512, 16, torch.bfloat16, True),
+     True, "prefill_tc"),
+    ("decode qwen3-moe bf16 Sk=1024", 8, 32, 4, 1, 1024, 128, torch.bfloat16,
+     True, "decode_tc"),
+    ("non-causal", 2, 12, 4, 512, 700, 64, torch.float32, False, "prefill_cc"),
+    ("fully masked rows", 1, 4, 2, 256, 128, 64, torch.float32,
+     True, "prefill_cc"),
+    ("fully masked rows bf16", 1, 4, 2, 256, 128, 64, torch.bfloat16,
+     True, "prefill_tc"),
+    ("ragged 37", 2, 12, 4, 37, 37, 64, torch.float32, True, "prefill_cc"),
+    ("d32", 8, 4, 2, 512, 512, 32, torch.float32, True, "prefill_cc"),
+    ("d32 bf16", 8, 4, 2, 512, 512, 32, torch.bfloat16, True, "prefill_tc"),
+    ("d16", 8, 4, 2, 512, 512, 16, torch.float32, True, "prefill_cc"),
+    ("d16 bf16", 8, 4, 2, 512, 512, 16, torch.bfloat16, True, "prefill_tc"),
+    # GQA group 8 at D = 128 (Qwen3-30B-A3B's attention), ragged
+    ("decode group 8 bf16 Sk=1", 8, 32, 4, 1, 1, 128, torch.bfloat16,
+     True, "decode_tc"),
+    ("decode group 8 bf16 Sk=777", 2, 32, 4, 1, 777, 128, torch.bfloat16,
+     True, "decode_tc"),
+    # batch 1 over a long cache: 4 pairs, the bf16 decode's most splits
+    ("decode qwen3-moe batch 1 bf16 Sk=8192", 1, 32, 4, 1, 8192, 128,
+     torch.bfloat16, True, "decode_tc"),
+    ("group 8 bf16 Sq=Sk=200", 1, 16, 2, 200, 200, 128, torch.bfloat16,
+     True, "prefill_tc"),
+    ("group 8 bf16 Sq=Sk=1000", 1, 16, 2, 1000, 1000, 128, torch.bfloat16,
+     True, "prefill_tc"),
+    ("fully masked rows group 8 bf16", 1, 16, 2, 256, 100, 128, torch.bfloat16,
+     True, "prefill_tc"),
+    ("group 8 bf16 non-causal", 1, 16, 2, 200, 150, 128, torch.bfloat16,
+     False, "prefill_tc"),
+    ("group 8 bf16 q^T", 2, 16, 2, 200, 200, 128, torch.bfloat16,
+     True, "prefill_tc"),
 )
 
 
@@ -899,16 +936,26 @@ def flash_checks(results: dict) -> None:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     err = {"float32": 0.0, "bfloat16": 0.0}
     out = {}
-    for label, b, h, hkv, sq, sk, d, dt, causal in FLASH_CASES:
-        q = torch.randn((b, h, sq, d), generator=gen, device="cuda").to(dt)
+    for label, b, h, hkv, sq, sk, d, dt, causal, want_path in FLASH_CASES:
+        if label.endswith("q^T"):
+            q = torch.randn((b, sq, h, d), generator=gen,
+                            device="cuda").to(dt).transpose(1, 2)
+        else:
+            q = torch.randn((b, h, sq, d), generator=gen,
+                            device="cuda").to(dt)
         if label.startswith("decode"):
-            cache = torch.randn((2, b, hkv, 1024 if sk <= 1024 else 2048, d),
+            cache = torch.randn((2, b, hkv, -(-sk // 1024) * 1024, d),
                                 generator=gen, device="cuda").to(dt)
             k, v = cache[0, :, :, :sk], cache[1, :, :, :sk]
         else:
             k, v = (torch.randn((b, hkv, sk, d), generator=gen,
                                 device="cuda").to(dt) for _ in range(2))
+        before = dict(fa.path_launches)
         got = fa.flash_attention_bhsd(q, k, v, causal=causal)
+        path = next(p for p in fa.PATHS if fa.path_launches[p] > before[p])
+        if path != want_path:
+            raise RuntimeError(f"flash_attention {label}: took {path}, not "
+                               f"{want_path}")
         want = attention_plain(q, k, v, causal=causal)
         torch.cuda.synchronize()
         tol = 2e-2 if dt == torch.bfloat16 else 1e-4
@@ -943,13 +990,35 @@ def flash_checks(results: dict) -> None:
         nbytes, ops = flash_cost(b, h, hkv, sq, sk, d, q.element_size(),
                                  causal)
         bnd, by = flash_bound(nbytes, ops, dt)
+        rounds = {}
+        if dt == torch.bfloat16 and sq == 1 and sk >= 1024:
+            # a bf16 decode against SDPA: more medians, kernel and SDPA in
+            # turns; "faster" only if every kernel median beats every SDPA
+            # median
+            rounds = {"ms_rounds": [ms], "library_ms_rounds": [lib]}
+            for _ in range(FLASH_DECODE_ROUNDS - 1):
+                rounds["ms_rounds"].append(time_ms(
+                    lambda: fa.flash_attention_bhsd(q, k, v, causal=causal)))
+                rounds["library_ms_rounds"].append(time_ms(sdpa))
+            rounds["faster_than_library"] = (
+                max(rounds["ms_rounds"]) < min(rounds["library_ms_rounds"]))
+            log(f"[kernels] flash_attention {label}: {FLASH_DECODE_ROUNDS} "
+                f"medians, kernel {min(rounds['ms_rounds']):.5g}-"
+                f"{max(rounds['ms_rounds']):.5g} ms, SDPA "
+                f"{min(rounds['library_ms_rounds']):.5g}-"
+                f"{max(rounds['library_ms_rounds']):.5g} ms: "
+                + ("faster in every round" if rounds["faster_than_library"]
+                   else "not faster in every round"))
         out[label] = {"shape_q": [b, h, sq, d], "shape_kv": [b, hkv, sk, d],
-                      "dtype": str(dt), "causal": causal, "max_abs_err": e,
+                      "dtype": str(dt), "causal": causal, "path": path,
+                      "max_abs_err": e,
                       "ms": ms, "plain_ms": pms, "library_ms": lib,
                       "library_max_abs_err": lib_err, "bound_ms": bnd,
-                      "bound_by": by, "bytes": nbytes, "flops": ops}
+                      "bound_by": by, "bytes": nbytes, "flops": ops,
+                      **rounds}
         log(f"[kernels] flash_attention {label} q{[b, h, sq, d]} "
-            f"kv{[b, hkv, sk, d]} {str(dt)[6:]} causal={causal}: {ms:.4g} "
+            f"kv{[b, hkv, sk, d]} {str(dt)[6:]} causal={causal} ({path}): "
+            f"{ms:.4g} "
             f"ms/launch, bound {bnd:.4g} ms ({by}), plain {pms:.4g} ms, "
             f"SDPA {lib:.4g} ms; max |kernel - plain| = {e:.3g}, "
             f"|SDPA - plain| = {lib_err:.3g}")
@@ -2768,6 +2837,10 @@ MOE_ARCH = "qwen3_moe_30b_a3b"
 MOE_PREFILL_RUNS = 5         # timed prefill forwards after one warm-up
 MOE_NEW_TOKENS = 16          # the engine's new tokens a request
 MOE_PROMPT_BYTES = (32, 64)  # the engine's common prompt length, drawn here
+# #7's paths for Qwen3-30B-A3B (GQA group 8, D = 128, bf16): every launch
+# of a forward, and of a decode step, must take these
+MOE_PREFILL_PATH = "prefill_tc"
+MOE_DECODE_PATH = "decode_tc"
 # moe_apply against moe_apply_plain on the card, both bf16: the same
 # products in other GEMM shapes and the combine summed in another order,
 # so each bf16 rounding (h, the expert output, the sum) may land an ulp
@@ -2812,10 +2885,12 @@ def forward_profile(params, cfg, tokens: torch.Tensor) -> dict:
             torch.cuda.synchronize()
     by_kernel = kernel_times(prof)
     device = sum(by_kernel.values())
+    flash = sum(t for k, t in by_kernel.items()
+                if "flash_fwd" in k or "flash_decode" in k)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     return {"wall_s": wall, "device_s": device if device else None,
             "busy_share": device / wall if device else None,
-            "top_kernels_s": top}
+            "flash_s": flash, "top_kernels_s": top}
 
 
 def moe_reduced_check(payloads: list[bytes]) -> dict:
@@ -3033,6 +3108,7 @@ def moe_full_width(payloads: list[bytes], rng) -> dict:
     # (d) prefill
     torch.cuda.reset_peak_memory_stats()
     fa.launches = 0
+    fa.path_launches.update(dict.fromkeys(fa.PATHS, 0))
     times, logits = [], None
     with torch.inference_mode():
         for run in range(MOE_PREFILL_RUNS + 1):  # run 0 warms up
@@ -3043,10 +3119,13 @@ def moe_full_width(payloads: list[bytes], rng) -> dict:
             if run:
                 times.append(time.perf_counter() - t0)
     prefill_launches = fa.launches
-    if prefill_launches != cfg.n_layers * (MOE_PREFILL_RUNS + 1):
-        raise RuntimeError(f"{prefill_launches} flash_attention launches in "
-                           f"{MOE_PREFILL_RUNS + 1} forwards, not "
-                           f"{cfg.n_layers} each")
+    prefill_paths = {p: n for p, n in fa.path_launches.items() if n}
+    if prefill_paths != {MOE_PREFILL_PATH: cfg.n_layers
+                         * (MOE_PREFILL_RUNS + 1)}:
+        raise RuntimeError(f"flash_attention launches by path in "
+                           f"{MOE_PREFILL_RUNS + 1} forwards: "
+                           f"{prefill_paths}, not {cfg.n_layers} a forward "
+                           f"on {MOE_PREFILL_PATH}")
     if logits.shape != (batch, seq, cfg.vocab) or not bool(
             torch.isfinite(logits).all()) or not np.isfinite(float(aux)):
         raise RuntimeError(f"prefill logits {tuple(logits.shape)} or aux "
@@ -3066,7 +3145,8 @@ def moe_full_width(payloads: list[bytes], rng) -> dict:
         f"{', '.join(f'{t * 1e3:.3f}' for t in times)} ms) = "
         f"{batch * seq / prefill_s:.1f} prefill tokens/s; "
         f"{prefill_launches} flash_attention launches ({cfg.n_layers} a "
-        f"forward); logits finite, aux {out['aux']:.6f}; peak device "
+        f"forward, by path {prefill_paths}); logits finite, aux "
+        f"{out['aux']:.6f}; peak device "
         f"memory {out['prefill_peak_bytes']} bytes; profiled forward: "
         + profile_line(out["prefill_profile"]))
 
@@ -3087,6 +3167,7 @@ def moe_full_width(payloads: list[bytes], rng) -> dict:
     spans0 = {k: span_sum(k) for k in ("serve.prefill", "serve.decode")}
     torch.cuda.reset_peak_memory_stats()
     before = fa.launches
+    fa.path_launches.update(dict.fromkeys(fa.PATHS, 0))
     tf.decode_step = recording_step
     t0 = time.perf_counter()
     try:
@@ -3098,16 +3179,21 @@ def moe_full_width(payloads: list[bytes], rng) -> dict:
     wall = time.perf_counter() - t0
     lap("engine")
     engine_launches = fa.launches - before
+    engine_paths = {p: n for p, n in fa.path_launches.items() if n}
     peak = torch.cuda.max_memory_allocated()
     spans = {k: span_sum(k) - spans0[k] for k in spans0}
     generated = engine.stats["tokens_generated"]
-    if engine_launches != cfg.n_layers * len(step_logits) or not all(
+    # the engine prefills its prompts token by token: every launch is a
+    # decode step's, one a layer
+    if engine_paths != {MOE_DECODE_PATH: cfg.n_layers * len(step_logits)} \
+            or not all(
             r.done and 0 < len(r.out_tokens) <= MOE_NEW_TOKENS
             and all(0 <= t < cfg.vocab for t in r.out_tokens)
             for r in done):
-        raise RuntimeError(f"engine: {engine_launches} flash_attention "
-                           f"launches over {len(step_logits)} steps, or a "
-                           f"request unfinished")
+        raise RuntimeError(f"engine: flash_attention launches by path "
+                           f"{engine_paths} over {len(step_logits)} steps "
+                           f"(not {cfg.n_layers} a step on "
+                           f"{MOE_DECODE_PATH}), or a request unfinished")
     decode_cap = moe.expert_capacity(batch * cfg.moe_top_k, cfg.moe_experts,
                                      cfg.moe_top_k,
                                      max(cfg.capacity_factor, 2.0))
@@ -3125,14 +3211,17 @@ def moe_full_width(payloads: list[bytes], rng) -> dict:
         engine_peak_bytes=peak, decode_capacity=decode_cap,
         decode_profile=prof, tie_margin=MOE_TIE_MARGIN, **check,
         flash_launches={"moe prefill": prefill_launches,
-                        "moe engine": engine_launches})
+                        "moe engine": engine_launches},
+        flash_paths={"moe prefill": prefill_paths,
+                     "moe engine": engine_paths})
     log(f"[moe] (e) ServeEngine(batch_size={batch}, max_seq={seq}, greedy): "
         f"{len(done)} requests of {plen} payload bytes, {generated} tokens "
         f"generated in {wall:.3f} s; serve.prefill "
         f"{spans['serve.prefill']:.3f} s, serve.decode "
         f"{spans['serve.decode']:.3f} s = "
         f"{out['decode_tokens_per_s']:.1f} decode tokens/s; "
-        f"{engine_launches} flash_attention launches; peak device memory "
+        f"{engine_launches} flash_attention launches (by path "
+        f"{engine_paths}); peak device memory "
         f"{peak} bytes; decode capacity {decode_cap} slots an expert "
         f"(batch {batch}: nothing drops); {check['checked']} tokens == "
         f"forward's argmax, {check['near_ties']} near-ties (top-2 gap <= "
@@ -3151,7 +3240,8 @@ def profile_line(prof: dict) -> str:
         return "the profiler saw no device time (busy share not measured)"
     return (f"wall {prof['wall_s'] * 1e3:.3f} ms, device "
             f"{prof['device_s'] * 1e3:.3f} ms, busy share "
-            f"{prof['busy_share']:.4f}; top kernels (ms): "
+            f"{prof['busy_share']:.4f}, flash_attention "
+            f"{prof['flash_s'] * 1e3:.3f} ms; top kernels (ms): "
             + "; ".join(f"{k[:60]} {t * 1e3:.3f}"
                         for k, t in prof["top_kernels_s"]))
 
@@ -3629,9 +3719,13 @@ def kernel_line(results: dict, store: ColumnStore) -> dict:
              "train_lm": results["train"]["launches"]["flash_attention"],
              **results["moe"]["flash_launches"]},
          "train_1k_lse_ms": bw["fwd_lse_ms"],
+         "launches_by_path": {
+             phase: results["moe"]["flash_paths"][phase]
+             for phase in ("moe prefill", "moe engine")},
          "cases": {label: {k: c[k] for k in (
-             "shape_q", "shape_kv", "dtype", "causal", "ms", "plain_ms",
-             "bound_ms", "bound_by", "library_ms", "max_abs_err")}
+             "shape_q", "shape_kv", "dtype", "causal", "path", "ms",
+             "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "max_abs_err")}
              for label, c in results["flash"].items()}},
         {"name": "flash_attention_backward", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -3686,9 +3780,14 @@ def main() -> int:
     log(f"[build-kernels] {sorted(libs)} in {results['build_kernels_s']:.3f} "
         f"s into {_build.BUILD_DIR}")
     for stem in sorted(libs):
+        entry = ""
         for line in _build.build_log(stem).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build-kernels] {stem}: {line.strip()}")
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                entry = m.group(1)
+            elif "registers" in line or "spill" in line:
+                log(f"[build-kernels] {stem} {entry}: "
+                    f"{line.split('ptxas info    :')[-1].strip()}")
 
     kernel_checks(results)
     rowgroup_checks(results)

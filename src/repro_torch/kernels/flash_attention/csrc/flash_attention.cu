@@ -16,43 +16,64 @@
 // that fall in its rows, and decode (Sq = 1) fills a tile with the group's
 // G heads instead of one query row.
 //
-// Three paths, chosen by the C entry point from shape and type:
+// Three paths, chosen by the C entry point from shape and type
+// (pick_path). Times below: H100 80GB HBM3 at 700 W, chip_smoke.py's
+// phase 4 and tools/flash_decode_splits.py (CUDA events, L2 flushed by
+// zeroing).
 //
-// B1. Split-KV decode, CUDA cores (G * Sq <= 16, f32 and bf16).
+// B1. Split-KV decode (G * Sq <= 16): CUDA cores in f32, tensor cores in
+//   bf16.
 //   Bound: device memory. Decode reads every cached key and value once
-//   and does ~2 flops a byte (fastwarc_lm, q [8, 12, 1, 64] over 1,000
-//   keys: 16.4 MB, ~5 us at 3.35 TB/s), so tensor cores cannot help;
-//   filling the card and streaming K and V at full width does. One block
-//   a (batch, KV head) left 32 blocks on 132 SMs, each walking its whole
-//   cache alone. Here the key range [0, Sk) is cut into n_splits chunks
-//   of whole 64-key tiles, as even as tiles allow (n_splits chosen by the
-//   wrapper from the shape: at most one wave of batch * Hkv * n_splits
-//   blocks, one an SM, and at least 4 tiles a chunk), grid (n_splits,
-//   B * Hkv). A key row is read in 16-byte chunks by neighbouring threads
-//   straight into registers (no shared-memory staging; a tile-per-row-
-//   block layout would have every warp re-read all of K and V from shared
-//   memory for only G live rows), the next step's rows in flight under
-//   this step's work; the query rows stay in registers (padded to 4 or
-//   16). Each warp runs its own online softmax over its keys, with no
-//   block barrier until the warps' partials are merged at the end. Each
-//   block writes its rows' running max m, denominator l and unnormalised
-//   accumulator (f32) to a workspace the wrapper allocates; the kernel
-//   allocates nothing.
-//   The last block of a (batch, KV head) to finish (__threadfence, then an
-//   atomicAdd on a per-pair counter in a zeroed int32 workspace, which
-//   that block sets back to 0) merges the partials in split order, so the
-//   output is the same bit for bit from run to run; a split with no live
-//   key (l = 0) adds nothing. One launch a call, strided cache views as
-//   they are.
+//   (fastwarc_lm, q [8, 12, 1, 64] over 1,000 keys: 16.4 MB, ~5 us at
+//   3.35 TB/s). One block a (batch, KV head) left 32 blocks on 132 SMs,
+//   each walking its whole cache alone. Here the key range [0, Sk) is cut
+//   into n_splits chunks of whole 64-key tiles, as even as tiles allow
+//   (n_splits chosen by the wrapper from the shape and type), grid
+//   (n_splits, B * Hkv). Each block writes its rows' running max m,
+//   denominator l and unnormalised accumulator (f32) to a workspace the
+//   wrapper allocates; the kernel allocates nothing. The last block of a
+//   (batch, KV head) to finish (__threadfence, then an atomicAdd on a
+//   per-pair counter in a zeroed int32 workspace, which that block sets
+//   back to 0) merges the partials in split order, so the output is the
+//   same bit for bit from run to run; a split with no live key (l = 0)
+//   adds nothing. One launch a call, strided cache views as they are.
+//   f32 (flash_decode_kernel): ~2 flops a byte, and TF32 keeps too few
+//   digits (see B3), so the products stay on the CUDA cores. A key row is
+//   read in 16-byte chunks by neighbouring threads straight into
+//   registers, the next step's rows in flight under this step's work; the
+//   query rows stay in registers (padded to 4 or 16); each warp runs its
+//   own online softmax over its keys, the warps' partials merged at the
+//   end.
+//   bf16 (flash_decode_tc_kernel): at GQA group 8 the CUDA-core loop was
+//   bound by instruction issue, not bytes (16 rows a warp: every score a
+//   5-step shuffle reduction; Qwen3-30B-A3B's q [8, 32, 1, 128] over
+//   1,024 keys took 0.0403 ms against SDPA's 0.0203). Here the block's
+//   G * Sq rows, padded to 16, are the A operand of mma.sync.m16n8k16 (Q
+//   loaded once into registers); a producer warp keeps 4 K and V tiles in
+//   flight by TMA (B2's tensor maps and swizzle) in a ring with full and
+//   empty mbarriers; each of 4 consumer warps takes 16 keys
+//   of every tile: S = Q K^T from K by ldmatrix (two accumulator chains
+//   over D), the online softmax on the accumulator fragments (B2's), P
+//   rounded to bf16 and reused in registers as the A operand of O += P V
+//   from V by ldmatrix.trans, O in f32 registers. The splits' merge issues
+//   the loads of all a thread's items and of 4 splits together (item by
+//   item it took 0.0226 ms at 4 splits, against 0.0197 unsplit). Qwen3's
+//   decode then reads at the rate SDPA does: 0.0197 / 0.0196 / 0.0201 ms
+//   at 1 / 2 / 4 splits (SDPA 0.0199); 6 stages in place of 4: 0.0204.
+//   Past 32 to 64 blocks more splits only add merges (q [8, 16, 1, 128]
+//   over 2,000 keys: 0.0385 ms unsplit, 0.0397 at 2 splits; q [1, 32, 1,
+//   128] over 32,768 keys: 0.0504 / 0.0448 / 0.0478 ms at 8 / 16 / 32
+//   splits), so the wrapper splits bf16 to fewer than 64 blocks.
 //
 // B2. Tensor-core prefill (bf16, G * Sq > 16): wgmma and TMA.
 //   Bound: bf16 tensor-core operations (InternLM2-1.8B, q [1, 16, 2048,
 //   128], k/v [1, 8, 2048, 128], causal: 17.2 GFLOP, ~17 us at 989
-//   TFLOP/s). One warpgroup (128 threads) owns 64 virtual rows. Q is
-//   read once, straight from device memory into registers in the A-operand
-//   order of wgmma (D / 16 k16 fragments a thread: 4 to 32 registers), so
-//   Q K^T reads only K from shared memory (a ragged Sq tile can straddle
-//   two heads, which a TMA box could not gather anyway). K and V tiles of
+//   TFLOP/s; Qwen3-30B-A3B, q [8, 32, 1024, 128], k/v [8, 4, 1024, 128]:
+//   68.8 GFLOP, 0.0696 ms). One warpgroup (128 threads) owns 64 virtual
+//   rows. Q is read once, straight from device memory into registers in
+//   the A-operand order of wgmma (D / 16 k16 fragments a thread: 4 to 32
+//   registers), so Q K^T reads only K from shared memory (a ragged Sq
+//   tile can straddle two heads, which a TMA box could not gather anyway). K and V tiles of
 //   64 keys come in by TMA, issued by one thread, into one K and one V
 //   buffer with an mbarrier each; a buffer is refilled as soon as every
 //   warp is done with it, so the next K tile lands under this tile's
@@ -78,6 +99,28 @@
 //   wgmma operands there), 2-stage K/V rings (fewer blocks an SM at
 //   D = 128), two warpgroups sharing each tile, and a software pipeline
 //   running the next tile's Q K^T under this tile's softmax.
+//   Also timed and rejected, at D = 128: a warp-specialised kernel (a
+//   block of 128 virtual rows; one producer thread issuing TMA into a
+//   ring of K and V tiles with full and empty mbarriers, setmaxnreg
+//   giving the producer warpgroup's registers to two consumer warpgroups
+//   of 64 rows that share every tile; per tile a consumer issued
+//   S_j = Q K_j^T and O += P_{j-1} V_{j-1} together, waited for S_j only
+//   (wgmma.wait_group 1) and ran S_j's softmax under the running P V;
+//   named barriers passed the turn to issue between the two consumers,
+//   ping-pong; no block barrier in the key loop; 168 registers a launch,
+//   setmaxnreg 24 / 240, no spills). At Qwen3-30B-A3B's prefill (2,048
+//   blocks, 15.5 waves of one block an SM) it took 0.2605 ms against
+//   this kernel's 0.2124 (SDPA 0.1572); 64-key tiles in 2 / 4 stages
+//   0.2831 / 0.2872, 128-key tiles in 3 stages 0.2615, no ping-pong
+//   0.2693. InternLM2-1.8B's (256 blocks) 0.0513 against 0.0505. It won
+//   only on one-wave grids whose keys fill several tiles (group 8,
+//   q [1, 16, 1000, 128]: 0.0269 against 0.0302, a shape no model's
+//   main path gives) and lost below that (Sk of 100 to 200: 0.0151 /
+//   0.0164 / 0.0167 against 0.0115 / 0.0123 / 0.0136). With one block an
+//   SM each block's start (Q's loads, the first tile's TMA) and end are
+//   exposed, which this kernel hides under its two other blocks on the
+//   SM; a persistent grid that starts a block's next row tile under the
+//   last one's tail is the next design to try.
 //   Shared-memory layout, by D: a K-major bf16 row of D elements is one
 //   swizzle atom row of 32 (D = 16, SW32), 64 (D = 32, SW64) or 128 bytes
 //   (D = 64, SW128), or two SW128 atom columns (D = 128); the TMA maps use
@@ -112,7 +155,6 @@
 #include <cmath>
 #include <cstdint>
 #include <initializer_list>
-#include <type_traits>
 
 namespace {
 
@@ -406,8 +448,7 @@ __host__ __device__ constexpr int partial_floats() {
   return kDecodeRows * (D + 2);
 }
 
-// a chunk of a row as floats: 16 bytes of f32 (4) or bf16 (8), or 8
-// bytes of bf16 (4)
+// a 16-byte chunk of an f32 row
 __device__ __forceinline__ void unpack(const uint4& r, float (&x)[4]) {
   x[0] = __uint_as_float(r.x);
   x[1] = __uint_as_float(r.y);
@@ -415,29 +456,7 @@ __device__ __forceinline__ void unpack(const uint4& r, float (&x)[4]) {
   x[3] = __uint_as_float(r.w);
 }
 
-__device__ __forceinline__ void unpack(const uint4& r, float (&x)[8]) {
-  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-    x[2 * i] = f.x;
-    x[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void unpack(const uint2& r, float (&x)[4]) {
-  const float2 lo =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.x));
-  const float2 hi =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.y));
-  x[0] = lo.x;
-  x[1] = lo.y;
-  x[2] = hi.x;
-  x[3] = hi.y;
-}
-
-// a chunk of floats stored as T: 4 or 8 values
+// four output values in the output's type
 __device__ __forceinline__ void store_chunk(float* p, const float (&x)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
 }
@@ -452,26 +471,6 @@ __device__ __forceinline__ void store_chunk(__nv_bfloat16* p,
   *reinterpret_cast<uint2*>(p) = r;
 }
 
-__device__ __forceinline__ void store_chunk(__nv_bfloat16* p,
-                                            const float (&x)[8]) {
-  uint4 r;
-  uint32_t* w = &r.x;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
-    w[i] = *reinterpret_cast<uint32_t*>(&v);
-  }
-  *reinterpret_cast<uint4*>(p) = r;
-}
-
-// elements of a thread's chunk of a row: 16 bytes, but 8 for bf16 with
-// 16 rows, whose 8-element query and output chunks would not fit in
-// registers
-template <typename T, int MR>
-__host__ __device__ constexpr int dec_elems() {
-  return sizeof(T) == 2 && MR <= 4 ? 8 : 4;
-}
-
 // shared memory of the decode kernel: the warps' accumulators, merged at
 // the end
 template <int D, int MR>
@@ -482,11 +481,10 @@ constexpr size_t dec_smem_bytes() {
 // Grid (n_splits, B * Hkv): the block owns all G * Sq <= MR rows of its
 // (batch, KV head) and the 64-key tiles [split * tiles / n_splits,
 // (split + 1) * tiles / n_splits) of the keys. A key row is read in
-// chunks of 16 bytes (4 f32 or 8 bf16 values; 8 bytes of bf16 for 16
-// rows) by neighbouring threads, so a warp reads whole rows, coalesced,
-// from device memory into registers. The block walks its keys in steps
-// of 4 keys a key lane; the next step's K and V rows are requested before
-// this step's are used. Each warp keeps its own online softmax over its
+// chunks of 16 bytes (4 f32 values) by neighbouring threads, so a warp
+// reads whole rows, coalesced, from device memory into registers. The
+// block walks its keys in steps of 4 keys a key lane; the next step's K
+// and V rows are requested before this step's are used. Each warp keeps its own online softmax over its
 // keys, in registers: the scores (a chunk's dot products with the rows'
 // query chunks, reduced over the key's threads by shuffles), the row max
 // and sum over the warp's key lanes (shuffles), and each thread's chunk of
@@ -494,21 +492,20 @@ constexpr size_t dec_smem_bytes() {
 // 8 warps' partials (max, sum, accumulator) are merged through shared
 // memory. ws and counters are the wrapper's workspace (unused when
 // n_splits == 1).
-template <int D, typename T, int MR>
+template <int D, int MR>
 __global__ void __launch_bounds__(kThreads)
-flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, T* __restrict__ out, int H,
+flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ out, int H,
                     int Hkv, int Sq, int Sk, int causal, float scale,
                     int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb,
                     int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh,
                     int64_t v_ss, int tiles, float* __restrict__ ws,
                     int* __restrict__ counters) {
-  constexpr int kE = dec_elems<T, MR>();   // elements a chunk
+  constexpr int kE = 4;                    // elements a chunk
   constexpr int kTPK = D / kE;             // threads a key row
   constexpr int kLanes = kThreads / kTPK;  // key lanes of the block
   constexpr int kStep = 4 * kLanes;        // keys a step
-  using Raw = typename std::conditional<kE * sizeof(T) == 16, uint4,
-                                        uint2>::type;
+  using Raw = uint4;
   extern __shared__ float4 smem4[];
   float* red = reinterpret_cast<float*>(smem4);  // [kDecWarps][MR][D]
   __shared__ float wm[kDecWarps][MR], wl[kDecWarps][MR];
@@ -524,8 +521,8 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kvh = blockIdx.y - b * Hkv;
   const int rows = group * Sq;
   const int offset = Sk - Sq;
-  const T* kb = k + b * k_sb + kvh * k_sh + c * kE;
-  const T* vb = v + b * v_sb + kvh * v_sh + c * kE;
+  const float* kb = k + b * k_sb + kvh * k_sh + c * kE;
+  const float* vb = v + b * v_sb + kvh * v_sh + c * kE;
   const int64_t sp = blockIdx.x, n_splits = gridDim.x;
   const int kv_lo = static_cast<int>(sp * tiles / n_splits) * kBc;
   const int kv_hi =
@@ -816,6 +813,14 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   }
 }
 
+// bring a tensor map (a __grid_constant__ parameter) into the TMA unit's
+// cache ahead of its first use
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
 // one TMA tile of a 4-D tensor map into shared memory, completing on bar
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1,
@@ -839,6 +844,45 @@ __device__ __forceinline__ void wgmma_commit() {
 // wait until every committed wgmma group has finished
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// named barrier `id` over n threads
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// four 8 x 8 bf16 matrices from shared memory, lane l giving the address
+// of row l % 8 of matrix l / 8; .trans delivers each transposed
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c[16 x 8] += a[16 x 16] b[16 x 8], bf16 in, f32 accumulate: thread t
+// holds c rows t / 4 (c[0], c[1]) and t / 4 + 8 (c[2], c[3]), columns
+// 2 (t % 4) (+ 1)
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Keeps the compiler from moving reads or writes of accumulator registers
@@ -1084,17 +1128,20 @@ __device__ __forceinline__ float fast_exp2(float x) {
 
 // The online softmax of one score tile in registers: mask (on tiles that
 // need it), update the running max m (in score units) and this thread's
-// share of the row sums l, write P = 2^(s c - m c) as four k16 A fragments
+// share of the row sums l, turn the scores into P = 2^(s c - m c) in place
 // (c = log2(e) / sqrt(D), one FFMA an element) and return the factor the
-// accumulator must be rescaled by. Thread t of warp w holds rows
-// 16 w + t / 4 (+ 8) and keys k0 + 8 j + 2 (t % 4) (+ 1).
-__device__ __forceinline__ void softmax_tile(
-    float (&s)[32], uint32_t (&pa)[4][4], float (&m_r)[2], float (&l_r)[2],
-    float (&corr)[2], int k0, bool masked, int Sk, int causal,
-    const int (&pos_h)[2], int offset, int lane, float scale_log2) {
+// accumulator must be rescaled by. The fragment is that of wgmma's m64n64
+// accumulator (N = 32) or of two m16n8 mma.sync tiles (N = 8): thread t
+// of warp w holds rows 16 w + t / 4 (+ 8) (rows t / 4 (+ 8) for mma.sync)
+// and keys k0 + 8 j + 2 (t % 4) (+ 1). Keys from Sk on are masked.
+template <int N>
+__device__ __forceinline__ void softmax_scores(
+    float (&s)[N], float (&m_r)[2], float (&l_r)[2], float (&corr)[2],
+    int k0, bool masked, int Sk, int causal, const int (&pos_h)[2],
+    int offset, int lane, float scale_log2) {
   float mx[2] = {m_r[0], m_r[1]};
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < N; ++i) {
     const int h = (i >> 1) & 1;
     if (masked) {
       const int key = k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
@@ -1114,15 +1161,24 @@ __device__ __forceinline__ void softmax_tile(
   }
   float sum[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < 32; i += 2) {
+  for (int i = 0; i < N; i += 2) {
     const int h = (i >> 1) & 1;
-    const float p0 = fast_exp2(fmaf(s[i], scale_log2, -m_c[h]));
-    const float p1 = fast_exp2(fmaf(s[i + 1], scale_log2, -m_c[h]));
-    sum[h] += p0 + p1;
-    pa[i >> 3][(i >> 1) & 3] = pack_bf16(p0, p1);
+    s[i] = fast_exp2(fmaf(s[i], scale_log2, -m_c[h]));
+    s[i + 1] = fast_exp2(fmaf(s[i + 1], scale_log2, -m_c[h]));
+    sum[h] += s[i] + s[i + 1];
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) l_r[h] = l_r[h] * corr[h] + sum[h];
+}
+
+// P rounded to bf16 as N / 8 k16 A fragments (the accumulator fragment of
+// two 8-key chunks is one 16-key A fragment, for wgmma and mma.sync alike)
+template <int N>
+__device__ __forceinline__ void pack_p(const float (&p)[N],
+                                       uint32_t (&pa)[N / 8][4]) {
+#pragma unroll
+  for (int i = 0; i < N; i += 2)
+    pa[i >> 3][(i >> 1) & 3] = pack_bf16(p[i], p[i + 1]);
 }
 
 // B2: grid (B * Hkv, row tiles of 64 rows); one warpgroup of 128 threads.
@@ -1221,8 +1277,9 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tmap_k,
     if (tid == 0 && j + 1 < n_tiles)
       issue_tile<D>(&tmap_k, Ks, full_k, j + 1, kvh, b);
     const int k0 = j * kBc;
-    softmax_tile(s, pa, m_r, l_r, corr, k0, k0 + kBc > open_end, Sk,
-                 causal, pos_h, offset, lane, scale_log2);
+    softmax_scores(s, m_r, l_r, corr, k0, k0 + kBc > open_end, Sk, causal,
+                   pos_h, offset, lane, scale_log2);
+    pack_p(s, pa);
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o_acc[i] *= corr[(i >> 1) & 1];
     mbar_wait(full_v, ph);
@@ -1255,6 +1312,345 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tmap_k,
           __floats2bfloat162_rn(o_acc[4 * c + 2 * h] * inv,
                                 o_acc[4 * c + 2 * h + 1] * inv);
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B1, bf16: split-KV decode on tensor cores (mma.sync, TMA ring)
+// ---------------------------------------------------------------------------
+
+constexpr int kDecTcWarps = 4;  // consumer warps: 16 keys of each tile each
+constexpr int kDecTcStages = 4;  // K/V tiles in flight (6 was slower)
+
+
+template <int D>
+struct DecTc {
+  static constexpr int kConsumers = 32 * kDecTcWarps;
+  static constexpr int kThreads = kConsumers + 32;  // + the producer warp
+  static constexpr int kStage = 2 * Tc<D>::kTileBytes;  // a K, then a V tile
+  static constexpr int kRing = kDecTcStages * kStage;
+  // the consumer warps' accumulators [warps][16 rows][D], merged at the end
+  static constexpr int kRed = 4 * kDecTcWarps * kDecodeRows * D;
+  // the ring, the accumulators, a full and an empty barrier a stage; 1024
+  // bytes of slack to align the swizzled tiles
+  static constexpr size_t kSmem = 1024 + kRing + kRed + 2 * kDecTcStages * 8;
+};
+
+// Shared-memory address of element (row, col) of a bf16 tile as TMA
+// writes it in Tc<D>'s layout: atom columns of kAtomElems, and the 16-byte
+// chunks of each 128-byte line XORed with the line's index mod 8 (SW128),
+// mod 4 (SW64) or mod 2 (SW32). tile is 1024-byte aligned.
+template <int D>
+__device__ __forceinline__ uint32_t swz(uint32_t tile, int row, int col) {
+  using C = Tc<D>;
+  constexpr uint32_t kMask = C::kRowBytes / 16 - 1;
+  const uint32_t off = (col / C::kAtomElems) * C::kAtomCol +
+                       row * C::kRowBytes + (col % C::kAtomElems) * 2;
+  return tile + (off ^ (((off >> 7) & kMask) << 4));
+}
+
+// Grid (n_splits, B * Hkv), as the f32 decode: the block owns all
+// G * Sq <= 16 rows of its (batch, KV head), padded to the 16 rows of an
+// mma.sync A operand, and the 64-key tiles [split * tiles / n_splits,
+// (split + 1) * tiles / n_splits). Warp 4 is the producer: one thread
+// keeps kDecTcStages K and V tiles in flight by TMA, refilling a stage
+// when the four consumer warps have released it. Consumer warp w takes
+// keys 16 w .. 16 w + 15 of every tile: S = Q K^T (K by ldmatrix), the
+// online softmax on the accumulator fragments, P rounded to bf16 and
+// reused from registers as the A operand of O += P V (V by
+// ldmatrix.trans), O in f32 registers. The four warps' partials merge
+// through shared memory at the end; the splits merge in the last block of
+// the pair, in split order, as in the f32 decode. ws and counters are the
+// wrapper's workspace (unused when n_splits == 1). The ring leaves room
+// for one or two blocks an SM; without the minimum of 1 in the launch
+// bounds ptxas held D = 64 to 96 registers and spilled.
+template <int D>
+__global__ void __launch_bounds__(DecTc<D>::kThreads, 1)
+flash_decode_tc_kernel(const __grid_constant__ CUtensorMap tmap_k,
+                       const __grid_constant__ CUtensorMap tmap_v,
+                       const __nv_bfloat16* __restrict__ q,
+                       __nv_bfloat16* __restrict__ out, int H, int Hkv,
+                       int Sq, int Sk, int causal, float scale_log2,
+                       int64_t q_sb, int64_t q_sh, int64_t q_ss, int tiles,
+                       float* __restrict__ ws, int* __restrict__ counters) {
+  using C = Tc<D>;
+  using Dc = DecTc<D>;
+  constexpr int NS = kDecTcStages;
+  constexpr int kW = kDecTcWarps;
+  constexpr int kCT = Dc::kConsumers;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
+  float* red = reinterpret_cast<float*>(base + Dc::kRing);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + Dc::kRing + Dc::kRed);
+  uint64_t* empty = full + NS;
+  __shared__ float wm[kW][kDecodeRows], wl[kW][kDecodeRows];
+  __shared__ int s_last;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int group = H / Hkv;
+  const int b = blockIdx.y / Hkv;
+  const int kvh = blockIdx.y - b * Hkv;
+  const int rows = group * Sq;
+  const int offset = Sk - Sq;
+  const int64_t sp = blockIdx.x, n_splits = gridDim.x;
+  const int t_lo = static_cast<int>(sp * tiles / n_splits);
+  const int n_tiles = static_cast<int>((sp + 1) * tiles / n_splits) - t_lo;
+  const int kv_hi = min(Sk, (t_lo + n_tiles) * kBc);
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + s, 2);    // the K and the V tile's expect_tx
+      mbar_init(empty + s, kW);  // every consumer warp done with it
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (warp == kW) {  // the producer
+    if (lane == 0) {
+      prefetch_map(&tmap_k);
+      prefetch_map(&tmap_v);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % NS;
+        if (j >= NS) mbar_wait(empty + s, (j / NS - 1) & 1);
+        uint8_t* st = base + s * Dc::kStage;
+        issue_tile<D>(&tmap_k, st, full + s, t_lo + j, kvh, b);
+        issue_tile<D>(&tmap_v, st + C::kTileBytes, full + s, t_lo + j, kvh,
+                      b);
+      }
+    }
+    return;
+  }
+
+  // this thread's two rows of the fragments: t / 4 and t / 4 + 8
+  const int r0 = lane >> 2;
+  const int kk = 16 * warp;  // the warp's keys in each tile
+  int pos_h[2];
+  bool live_h[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int g = r0 + 8 * h;
+    live_h[h] = g < rows;
+    pos_h[h] = live_h[h] ? g % Sq : 0;
+  }
+  // Q as D / 16 k16 A fragments: rows r0 (+ 8), columns 16 t + 2 (t % 4)
+  // (+ 1) and + 8; rows past the group's last are zero
+  uint32_t qf[D / 16][4];
+#pragma unroll
+  for (int t = 0; t < D / 16; ++t) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e & 1;
+      const int col = 16 * t + 8 * (e >> 1) + 2 * (lane & 3);
+      qf[t][e] = 0u;
+      if (live_h[h]) {
+        const int g = r0 + 8 * h;
+        const int head = kvh * group + g / Sq;
+        qf[t][e] = *reinterpret_cast<const uint32_t*>(
+            q + b * q_sb + head * q_sh + pos_h[h] * q_ss + col);
+      }
+    }
+  }
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m_r[2] = {kNegInf, kNegInf};
+  float l_r[2] = {0.f, 0.f};  // this thread's share of the row sums
+  float corr[2];
+  // keys below this are live for every row (row 0 is at position 0)
+  const int open_end = causal ? min(kv_hi, offset + 1) : kv_hi;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % NS;
+    mbar_wait(full + s, (j / NS) & 1);
+    const uint32_t kt = smem_u32(base + s * Dc::kStage);
+    const uint32_t vt = kt + C::kTileBytes;
+    // two m16n8 tiles (keys kk .. kk + 7, kk + 8 .. kk + 15), each summed
+    // over D in two chains (even and odd k16 steps) to halve the latency
+    float sc[8], sc2[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) sc[i] = sc2[i] = 0.f;
+#pragma unroll
+    for (int t = 0; t < D / 16; ++t) {
+      uint32_t kf[4];
+      ldsm_x4(kf, swz<D>(kt, kk + (lane & 7) + ((lane >> 4) << 3),
+                         16 * t + ((lane >> 3) & 1) * 8));
+      float* acc = t & 1 ? sc2 : sc;
+      mma_bf16(acc, qf[t], kf[0], kf[1]);
+      mma_bf16(acc + 4, qf[t], kf[2], kf[3]);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) sc[i] += sc2[i];
+    const int k0 = (t_lo + j) * kBc;
+    softmax_scores(sc, m_r, l_r, corr, k0 + kk, k0 + kBc > open_end, kv_hi,
+                   causal, pos_h, offset, lane, scale_log2);
+    uint32_t pa[1][4];
+    pack_p(sc, pa);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+#pragma unroll
+    for (int u = 0; u < D / 16; ++u) {
+      uint32_t vf[4];
+      ldsm_x4_t(vf, swz<D>(vt, kk + (lane & 7) + ((lane >> 3) & 1) * 8,
+                           16 * u + (lane >> 4) * 8));
+      mma_bf16(o + 8 * u, pa[0], vf[0], vf[1]);
+      mma_bf16(o + 8 * u + 4, pa[0], vf[2], vf[3]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + s);  // the stage may refill
+  }
+
+  // the warp's partial: the row sums over the 4 lanes of a row, then the
+  // max, sum and accumulator into shared memory
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 1);
+    l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 2);
+  }
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      *reinterpret_cast<float2*>(
+          red + (warp * kDecodeRows + r0 + 8 * h) * D + 8 * n +
+          2 * (lane & 3)) = make_float2(o[4 * n + 2 * h], o[4 * n + 2 * h + 1]);
+    }
+  }
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      wm[warp][r0 + 8 * h] = m_r[h];
+      wl[warp][r0 + 8 * h] = l_r[h];
+    }
+  }
+  bar_sync(1, kCT);
+  // item i < rows * D / 4 (consumer thread i % kCT) merges the warps for
+  // row i / (D / 4), columns 4 (i % (D / 4)) .. + 3
+  constexpr int kC4 = D / 4;
+  constexpr int kItems = (kDecodeRows * kC4 + kCT - 1) / kCT;
+  float ob[kItems][4], l_it[kItems], m_it[kItems];
+#pragma unroll
+  for (int it = 0; it < kItems; ++it) {
+    const int i = tid + it * kCT;
+    const int g = i / kC4, cc = i % kC4;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ob[it][e] = 0.f;
+    l_it[it] = 0.f;
+    m_it[it] = kNegInf;
+    if (g < rows) {
+      float mm = kNegInf;
+#pragma unroll
+      for (int w = 0; w < kW; ++w)
+        if (wl[w][g] > 0.f) mm = fmaxf(mm, wm[w][g]);
+#pragma unroll
+      for (int w = 0; w < kW; ++w) {
+        // a warp with no live key (l = 0) adds nothing
+        const float ww = wl[w][g] > 0.f
+                             ? fast_exp2((wm[w][g] - mm) * scale_log2)
+                             : 0.f;
+        l_it[it] = fmaf(wl[w][g], ww, l_it[it]);
+        const float4 x = *reinterpret_cast<const float4*>(
+            red + (w * kDecodeRows + g) * D + 4 * cc);
+        ob[it][0] = fmaf(x.x, ww, ob[it][0]);
+        ob[it][1] = fmaf(x.y, ww, ob[it][1]);
+        ob[it][2] = fmaf(x.z, ww, ob[it][2]);
+        ob[it][3] = fmaf(x.w, ww, ob[it][3]);
+      }
+      m_it[it] = mm;
+    }
+  }
+
+  if (n_splits > 1) {
+    // this split's partial, then the last block of the pair merges all
+    float* p0 = ws + static_cast<int64_t>(blockIdx.y) * n_splits *
+                         partial_floats<D>();
+    float* part = p0 + sp * partial_floats<D>();
+#pragma unroll
+    for (int it = 0; it < kItems; ++it) {
+      const int i = tid + it * kCT;
+      const int g = i / kC4, cc = i % kC4;
+      if (g >= rows) continue;
+      if (cc == 0) {
+        part[g] = m_it[it];
+        part[kDecodeRows + g] = l_it[it];
+      }
+      store_out<4>(part + 2 * kDecodeRows + g * D + 4 * cc, ob[it]);
+    }
+    __threadfence();
+    bar_sync(1, kCT);
+    if (tid == 0) {
+      s_last = atomicAdd(counters + blockIdx.y, 1) == n_splits - 1;
+      // every block of the pair has counted: leave the counter zeroed
+      // for the next launch
+      if (s_last) counters[blockIdx.y] = 0;
+    }
+    bar_sync(1, kCT);
+    if (!s_last) return;
+    __threadfence();
+    // every partial (L2 reads: other blocks wrote them): first the largest
+    // max of the splits that saw a key, then the weighted sums in split
+    // order. The loads of all the thread's items and of 4 splits are
+    // issued together (rows past the last read row rows - 1's partial and
+    // are not written), so each pass waits for the L2 a few times only.
+    float mm[kItems], ll[kItems];
+    int gi[kItems];
+#pragma unroll
+    for (int it = 0; it < kItems; ++it) {
+      gi[it] = min((tid + it * kCT) / kC4, rows - 1);
+      mm[it] = kNegInf;
+      ll[it] = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ob[it][e] = 0.f;
+    }
+#pragma unroll 4
+    for (int s = 0; s < n_splits; ++s) {
+      const float* ps = p0 + s * partial_floats<D>();
+#pragma unroll
+      for (int it = 0; it < kItems; ++it) {
+        const float ls = __ldcg(ps + kDecodeRows + gi[it]);
+        const float ms = __ldcg(ps + gi[it]);
+        if (ls > 0.f) mm[it] = fmaxf(mm[it], ms);
+      }
+    }
+#pragma unroll 4
+    for (int s = 0; s < n_splits; ++s) {
+      const float* ps = p0 + s * partial_floats<D>();
+#pragma unroll
+      for (int it = 0; it < kItems; ++it) {
+        const int cc = (tid + it * kCT) % kC4;
+        const float ls = __ldcg(ps + kDecodeRows + gi[it]);
+        const float ms = __ldcg(ps + gi[it]);
+        const float4 x = __ldcg(reinterpret_cast<const float4*>(
+            ps + 2 * kDecodeRows + gi[it] * D + 4 * cc));
+        // a split with no live key (l = 0) adds nothing
+        const float w =
+            ls > 0.f ? fast_exp2((ms - mm[it]) * scale_log2) : 0.f;
+        ll[it] = fmaf(ls, w, ll[it]);
+        ob[it][0] = fmaf(x.x, w, ob[it][0]);
+        ob[it][1] = fmaf(x.y, w, ob[it][1]);
+        ob[it][2] = fmaf(x.z, w, ob[it][2]);
+        ob[it][3] = fmaf(x.w, w, ob[it][3]);
+      }
+    }
+#pragma unroll
+    for (int it = 0; it < kItems; ++it) l_it[it] = ll[it];
+  }
+  // a row with no key has l == 0 and is written as 0
+#pragma unroll
+  for (int it = 0; it < kItems; ++it) {
+    const int i = tid + it * kCT;
+    const int g = i / kC4, cc = i % kC4;
+    if (g >= rows) continue;
+    const float inv = l_it[it] == 0.f ? 0.f : 1.f / l_it[it];
+    const int h = kvh * group + g / Sq;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ob[it][e] *= inv;
+    store_chunk(out + ((static_cast<int64_t>(b) * H + h) * Sq + g % Sq) * D +
+                    4 * cc,
+                ob[it]);
   }
 }
 
@@ -1364,12 +1760,12 @@ int launch_cc(const void* q, const void* k, const void* v, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, typename T, int MR>
+template <int D, int MR>
 int launch_decode(const void* q, const void* k, const void* v, void* out,
                   int B, int H, int Hkv, int Sq, int Sk, int causal,
                   const int64_t* st, int n_splits, void* ws, void* counters,
                   cudaStream_t stream) {
-  auto kern = flash_decode_kernel<D, T, MR>;
+  auto kern = flash_decode_kernel<D, MR>;
   constexpr size_t smem = dec_smem_bytes<D, MR>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1377,47 +1773,80 @@ int launch_decode(const void* q, const void* k, const void* v, void* out,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(n_splits, B * Hkv);
   kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), H, Hkv, Sq, Sk, causal,
-      1.0f / std::sqrt(static_cast<float>(D)), st[0], st[1], st[2], st[3],
-      st[4], st[5], st[6], st[7], st[8], (Sk + kBc - 1) / kBc,
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), H, Hkv, Sq, Sk,
+      causal, 1.0f / std::sqrt(static_cast<float>(D)), st[0], st[1], st[2],
+      st[3], st[4], st[5], st[6], st[7], st[8], (Sk + kBc - 1) / kBc,
       static_cast<float*>(ws), static_cast<int*>(counters));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, typename T>
-int dispatch_decode(const void* q, const void* k, const void* v, void* out,
-                    int B, int H, int Hkv, int Sq, int Sk, int causal,
-                    const int64_t* st, int n_splits, void* ws,
-                    void* counters, cudaStream_t s) {
-  // rows a block owns, padded: 4 (a decode step of G <= 4 heads) or 16
-  return (H / Hkv) * Sq <= 4
-             ? launch_decode<D, T, 4>(q, k, v, out, B, H, Hkv, Sq, Sk, causal,
-                                      st, n_splits, ws, counters, s)
-             : launch_decode<D, T, kDecodeRows>(q, k, v, out, B, H, Hkv, Sq,
-                                                Sk, causal, st, n_splits, ws,
-                                                counters, s);
+template <int D>
+int launch_decode_tc(const void* q, const void* k, const void* v, void* out,
+                     int B, int H, int Hkv, int Sq, int Sk, int causal,
+                     const int64_t* st, int n_splits, void* ws,
+                     void* counters, cudaStream_t stream) {
+  CUtensorMap tk, tv;
+  if (!encode_kv_map<D>(&tk, k, B, Hkv, Sk, st + 3) ||
+      !encode_kv_map<D>(&tv, v, B, Hkv, Sk, st + 6)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kern = flash_decode_tc_kernel<D>;
+  constexpr size_t smem = DecTc<D>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(n_splits, B * Hkv);
+  const float scale_log2 =
+      1.4426950408889634f / std::sqrt(static_cast<float>(D));
+  kern<<<grid, DecTc<D>::kThreads, smem, stream>>>(
+      tk, tv, static_cast<const __nv_bfloat16*>(q),
+      static_cast<__nv_bfloat16*>(out), H, Hkv, Sq, Sk, causal, scale_log2,
+      st[0], st[1], st[2], (Sk + kBc - 1) / kBc, static_cast<float*>(ws),
+      static_cast<int*>(counters));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The paths, as the entry point numbers them (flash_attention.py's PATHS).
+enum Path : int {
+  kDecodeF32 = 0,  // B1, f32: CUDA cores
+  kDecodeTc = 1,   // B1, bf16: mma.sync
+  kPrefillTc = 2,  // B2
+  kPrefillCc = 3,  // B3
+};
+
+// The path of a call, from its shape and type.
+int pick_path(int64_t H, int64_t Hkv, int64_t Sq, int dtype, bool lse) {
+  if (lse) return kPrefillCc;
+  if ((H / Hkv) * Sq <= kDecodeRows)
+    return dtype == 0 ? kDecodeF32 : kDecodeTc;
+  return dtype == 0 ? kPrefillCc : kPrefillTc;
 }
 
 template <int D>
-int dispatch_d(const void* q, const void* k, const void* v, void* out,
-               float* lse, int B, int H, int Hkv, int Sq, int Sk, int dtype,
+int dispatch_d(int path, const void* q, const void* k, const void* v,
+               void* out, float* lse, int B, int H, int Hkv, int Sq, int Sk,
                int causal, const int64_t* st, int n_splits, void* ws,
                void* counters, cudaStream_t s) {
-  if (lse == nullptr && (H / Hkv) * Sq <= kDecodeRows) {  // B1
-    return dtype == 0
-               ? dispatch_decode<D, float>(q, k, v, out, B, H, Hkv, Sq, Sk,
-                                           causal, st, n_splits, ws, counters,
-                                           s)
-               : dispatch_decode<D, __nv_bfloat16>(q, k, v, out, B, H, Hkv,
-                                                   Sq, Sk, causal, st,
-                                                   n_splits, ws, counters, s);
+  switch (path) {
+    case kDecodeF32:
+      // rows a block owns, padded: 4 (a decode step of G <= 4 heads) or 16
+      return (H / Hkv) * Sq <= 4
+                 ? launch_decode<D, 4>(q, k, v, out, B, H, Hkv, Sq, Sk,
+                                       causal, st, n_splits, ws, counters, s)
+                 : launch_decode<D, kDecodeRows>(q, k, v, out, B, H, Hkv, Sq,
+                                                 Sk, causal, st, n_splits, ws,
+                                                 counters, s);
+    case kDecodeTc:
+      return launch_decode_tc<D>(q, k, v, out, B, H, Hkv, Sq, Sk, causal, st,
+                                 n_splits, ws, counters, s);
+    case kPrefillTc:
+      return launch_tc<D>(q, k, v, out, B, H, Hkv, Sq, Sk, causal, st, s);
+    default:
+      return launch_cc<D>(q, k, v, out, lse, B, H, Hkv, Sq, Sk, causal, st,
+                          s);
   }
-  if (dtype == 1) {  // B2
-    return launch_tc<D>(q, k, v, out, B, H, Hkv, Sq, Sk, causal, st, s);
-  }
-  return launch_cc<D>(q, k, v, out, lse, B, H, Hkv, Sq, Sk, causal, st,
-                      s);  // B3
 }
 
 }  // namespace
@@ -1427,10 +1856,11 @@ int dispatch_d(const void* q, const void* k, const void* v, void* out,
 // out a contiguous [B, H, Sq, D]. dtype 0 = float32, 1 = bfloat16 (all four
 // tensors alike). D is 16, 32, 64 or 128; H a multiple of Hkv. Pointers
 // are 16-byte aligned and strides multiples of 16 bytes (4 f32 or 8 bf16
-// values): every path reads rows in 16-byte chunks, the bf16 prefill's K
-// and V by TMA.
-// Decode ((H / Hkv) * Sq <= 16) splits the keys n_splits ways (1 <= n_splits
-// <= ceil(Sk / 64)); for n_splits > 1, ws holds B * Hkv * n_splits * 16 *
+// values): every path reads rows in 16-byte chunks, the bf16 paths' K and
+// V by TMA.
+// On return *path holds the path launched (one of Path).
+// The decode paths split the keys n_splits ways (1 <= n_splits <=
+// ceil(Sk / 64)); for n_splits > 1, ws holds B * Hkv * n_splits * 16 *
 // (D + 2) floats and counters B * Hkv zeroed int32s, which the launch
 // leaves zeroed (launches sharing them must be stream-ordered).
 // lse is null on the serve path. Non-null (f32 only) it is a contiguous
@@ -1445,24 +1875,27 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    int64_t Sq, int64_t Sk, int64_t D,
                                    int dtype, int causal,
                                    const int64_t* strides, int64_t n_splits,
-                                   void* ws, void* counters, void* stream) {
-  const bool decode = lse == nullptr && Hkv >= 1 && H % Hkv == 0 &&
-                      (H / Hkv) * Sq <= kDecodeRows;
+                                   void* ws, void* counters, int* path,
+                                   void* stream) {
   const int64_t stride_mult = dtype == 0 ? 4 : 8;  // 16 bytes
   bool bad = B < 1 || Hkv < 1 || H < Hkv || H % Hkv || Sq < 1 || Sk < 1 ||
              (D != 16 && D != 32 && D != 64 && D != 128) ||
              (dtype != 0 && dtype != 1) || (lse != nullptr && dtype != 0) ||
              B * Hkv > 65535 || (H / Hkv) * Sq > (int64_t{1} << 30) ||
-             Sk > (int64_t{1} << 30) || ((H / Hkv) * Sq + 63) / 64 > 65535;
-  if (decode) {
+             Sk > (int64_t{1} << 30) || ((H / Hkv) * Sq + 63) / 64 > 65535 ||
+             path == nullptr;
+  if (bad) return static_cast<int>(cudaErrorInvalidValue);
+  const int p = pick_path(H, Hkv, Sq, dtype, lse != nullptr);
+  if (p == kDecodeF32 || p == kDecodeTc) {
     const int64_t tiles = (Sk + kBc - 1) / kBc;
-    bad = bad || n_splits < 1 || n_splits > tiles ||
+    bad = n_splits < 1 || n_splits > tiles ||
           (n_splits > 1 && (ws == nullptr || counters == nullptr));
   }
   for (int i = 0; i < 9; ++i) bad = bad || strides[i] % stride_mult != 0;
-  for (const void* p : {q, k, v, static_cast<const void*>(out)})
-    bad = bad || reinterpret_cast<uintptr_t>(p) % 16 != 0;
+  for (const void* ptr : {q, k, v, static_cast<const void*>(out)})
+    bad = bad || reinterpret_cast<uintptr_t>(ptr) % 16 != 0;
   if (bad) return static_cast<int>(cudaErrorInvalidValue);
+  *path = p;
   auto s = static_cast<cudaStream_t>(stream);
   auto l = static_cast<float*>(lse);
   const int b = static_cast<int>(B), h = static_cast<int>(H),
@@ -1470,16 +1903,16 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
             sk = static_cast<int>(Sk), ns = static_cast<int>(n_splits);
   switch (D) {
     case 16:
-      return dispatch_d<16>(q, k, v, out, l, b, h, hkv, sq, sk, dtype, causal,
+      return dispatch_d<16>(p, q, k, v, out, l, b, h, hkv, sq, sk, causal,
                             strides, ns, ws, counters, s);
     case 32:
-      return dispatch_d<32>(q, k, v, out, l, b, h, hkv, sq, sk, dtype, causal,
+      return dispatch_d<32>(p, q, k, v, out, l, b, h, hkv, sq, sk, causal,
                             strides, ns, ws, counters, s);
     case 64:
-      return dispatch_d<64>(q, k, v, out, l, b, h, hkv, sq, sk, dtype, causal,
+      return dispatch_d<64>(p, q, k, v, out, l, b, h, hkv, sq, sk, causal,
                             strides, ns, ws, counters, s);
     default:
-      return dispatch_d<128>(q, k, v, out, l, b, h, hkv, sq, sk, dtype,
-                             causal, strides, ns, ws, counters, s);
+      return dispatch_d<128>(p, q, k, v, out, l, b, h, hkv, sq, sk, causal,
+                             strides, ns, ws, counters, s);
   }
 }

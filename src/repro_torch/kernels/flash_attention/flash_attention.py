@@ -1,4 +1,4 @@
-"""Flash-attention kernel: CUDA launch and launch count.
+"""Flash-attention kernel: CUDA launch and launch counts.
 
 ``csrc/flash_attention.cu`` is blocked GQA attention with an online
 softmax, the counterpart of the reference's Pallas
@@ -8,15 +8,18 @@ rows with no key left written as 0. It takes any ``Sq`` and ``Sk`` (masks
 inside the kernel, no padding), ``D`` of 16, 32, 64 or 128, and strided
 batch, head and sequence axes (the KV cache's ``[..., :length, :]`` views
 need no copy); the last axis is contiguous. One launch a call, on one of
-three paths the C entry point picks from shape and type:
+the paths in :data:`PATHS`, which the C entry point picks from shape and
+type:
 
-* decode (``(H // Hkv) * Sq <= 16``, f32 or bf16): the keys are split
+* ``decode`` / ``decode_tc`` (``(H // Hkv) * Sq <= 16``; f32 on CUDA
+  cores, bf16 on tensor cores fed by TMA): the keys are split
   :func:`decode_splits` ways across blocks; the wrapper allocates the
   partials' workspace, and keeps one zeroed int32 counter a (batch, KV
   head) per device and stream, which each launch leaves zeroed (so
   launches that share it are stream-ordered);
-* bf16 prefill: ``wgmma`` tensor cores fed by TMA;
-* f32 prefill: CUDA cores. Training calls take it through
+* ``prefill_tc`` (bf16): ``wgmma`` tensor cores fed by TMA, one
+  warpgroup a block;
+* ``prefill_cc`` (f32): CUDA cores. Training calls take it through
   :func:`flash_attention_fwd_lse` on any f32 shape: the same entry
   point, given an ``lse`` buffer, also writes each row's log-sum-exp
   for the backward (:mod:`repro_torch.kernels.flash_attention.backward`).
@@ -28,7 +31,8 @@ Every path reads rows in 16-byte chunks, so the tensors must start on a
 anything it does not take; the plain version for CPU tensors is
 :func:`repro_torch.kernels.flash_attention.ref.attention_plain`, chosen by
 :func:`repro_torch.kernels.flash_attention.flash_attention`. ``launches``
-counts CUDA launches of the kernel, by either wrapper.
+counts CUDA launches of the kernel, by either wrapper, and
+``path_launches`` the same launches by the path they took.
 """
 from __future__ import annotations
 
@@ -36,17 +40,22 @@ import ctypes
 
 import torch
 
-__all__ = ["HEAD_DIMS", "check_shapes", "decode_splits",
-           "flash_attention_bhsd", "flash_attention_fwd_lse", "launches"]
+__all__ = ["HEAD_DIMS", "PATHS", "check_shapes", "decode_splits",
+           "flash_attention_bhsd", "flash_attention_fwd_lse", "launches",
+           "path_launches"]
 
 HEAD_DIMS = (16, 32, 64, 128)  # the kernel's template instances
 DECODE_ROWS = 16  # (H // Hkv) * Sq up to this takes the split-KV decode path
 KV_TILE = 64      # keys per tile, every path
 SMS = 132         # streaming multiprocessors of an H100
 SPLIT_TILES = 4   # fewest tiles a split is worth its share of the merge
+TC_DECODE_BLOCKS = 64  # the bf16 decode splits to fewer blocks than this
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the C entry point's paths, by number
+PATHS = ("decode", "decode_tc", "prefill_tc", "prefill_cc")
 
 launches = 0  # CUDA launches of the kernel in this process
+path_launches = dict.fromkeys(PATHS, 0)  # the same, by path
 _fn = None  # the C entry point, argument types set
 # decode's split counters, by (device index, stream)
 _counters: dict[tuple[int, int], torch.Tensor] = {}
@@ -61,7 +70,7 @@ def _entry():
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 6
                        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                           ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
-                          ctypes.c_void_p])
+                          ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -98,17 +107,32 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"{v.dtype}")
 
 
-def decode_splits(batch: int, kv_heads: int, sk: int) -> int:
+def decode_splits(batch: int, kv_heads: int, sk: int, *,
+                  bf16: bool = False) -> int:
     """Chunks of whole 64-key tiles the decode path cuts ``[0, Sk)`` into
-    (the kernel deals the tiles out as evenly as they go): enough to give
-    each of the H100's 132 SMs a block where the pairs are few, but no
-    more than one wave of ``batch * kv_heads * splits`` blocks (one
-    resident an SM: the decode kernel holds ~150 registers a thread), and
-    at least 4 tiles a chunk, below which a split's share of the merge
-    costs more than its keys (``tools/flash_decode_splits.py`` times the
-    alternatives)."""
+    (the kernel deals the tiles out as evenly as they go).
+
+    f32 (CUDA cores): enough to give each of the H100's 132 SMs a block
+    where the pairs are few, but no more than one wave of ``batch *
+    kv_heads * splits`` blocks (one resident an SM: the kernel holds ~150
+    registers a thread), and at least 4 tiles a chunk, below which a
+    split's share of the merge costs more than its keys.
+
+    bf16 (tensor cores, TMA): the same, but to fewer than 64 blocks. Past
+    32 to 64 blocks the card reads no faster and each split adds its
+    merge: on the H100, Qwen3-30B-A3B's decode (32 pairs over 1,024
+    keys) takes 0.0191 / 0.0195 / 0.0199 ms at 1 / 2 / 4 splits, 64
+    pairs over 2,000 keys 0.0385 / 0.0397 at 1 / 2, 8 pairs over 4,096
+    keys 0.0220 / 0.0216 / 0.0207 / 0.0234 at 4 / 7 / 8 / 16, and 4
+    pairs over 32,768 keys 0.0508 / 0.0456 / 0.0448 / 0.0484 at 8 / 15 /
+    16 / 32.
+    ``tools/flash_decode_splits.py`` times the alternatives."""
     tiles = -(-sk // KV_TILE)
-    return max(1, min(-(-tiles // SPLIT_TILES), SMS // (batch * kv_heads)))
+    pairs = batch * kv_heads
+    n = min(-(-tiles // SPLIT_TILES), SMS // pairs)
+    if bf16:
+        n = min(n, (TC_DECODE_BLOCKS - 1) // pairs)
+    return max(1, n)
 
 
 def _launch_strides(q: torch.Tensor, k: torch.Tensor,
@@ -125,8 +149,8 @@ def _launch_strides(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"head dim {D} not supported (one of {HEAD_DIMS})")
     if B * Hkv > 65535:
         raise ValueError(f"batch x kv heads = {B * Hkv} exceeds 65535")
-    # every path reads rows in 16-byte chunks (the bf16 prefill's K and V
-    # by TMA): 16-byte aligned tensors with strides of whole chunks
+    # every path reads rows in 16-byte chunks (the bf16 paths' K and V by
+    # TMA): 16-byte aligned tensors with strides of whole chunks
     mult = 16 // q.element_size()
     strides = []
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -136,8 +160,8 @@ def _launch_strides(q: torch.Tensor, k: torch.Tensor,
         if any(s % mult for s in st) or t.data_ptr() % 16:
             raise ValueError(
                 f"{name} needs a 16-byte aligned start and strides that are "
-                f"multiples of {mult} elements (16 bytes; the bf16 prefill "
-                f"loads K and V by TMA)")
+                f"multiples of {mult} elements (16 bytes; the bf16 paths "
+                f"load K and V by TMA)")
         strides += st
     return strides
 
@@ -152,8 +176,10 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     decode = lse is None and (H // Hkv) * Sq <= DECODE_ROWS
     fn = _entry()
     out = torch.empty((B, H, Sq, D), dtype=q.dtype, device=q.device)
-    n_splits = decode_splits(B, Hkv, Sk) if decode else 1
+    n_splits = (decode_splits(B, Hkv, Sk, bf16=q.dtype == torch.bfloat16)
+                if decode else 1)
     st_arr = (ctypes.c_int64 * 9)(*strides)
+    taken = ctypes.c_int()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         ws = counters = None
@@ -166,12 +192,14 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  B, H, Hkv, Sq, Sk, D, _DTYPES[q.dtype], int(bool(causal)),
                  ctypes.cast(st_arr, ctypes.c_void_p), n_splits,
                  None if ws is None else ws.data_ptr(),
-                 None if counters is None else counters.data_ptr(), stream)
+                 None if counters is None else counters.data_ptr(),
+                 ctypes.byref(taken), stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
     global launches
     launches += 1
+    path_launches[PATHS[taken.value]] += 1
     return out
 
 

@@ -37,6 +37,7 @@ SHAPES = [
     # the reduced LM configs' head dims (one Pallas block each)
     (1, 4, 2, 64, 64, 16),
     (2, 4, 1, 32, 64, 32),      # MQA, cache longer than queries
+    (1, 16, 2, 128, 128, 128),  # GQA group 8, as Qwen3-30B-A3B's attention
 ]
 
 
@@ -81,7 +82,7 @@ def test_flash_matches_pallas_shape_sweep(ref, causal):
 def test_flash_matches_pallas_dtypes(ref, dtype, tol):
     jdt = getattr(ref.jnp, dtype)
     for shape in ((1, 4, 2, 128, 128, 64), (1, 4, 2, 64, 64, 32),
-                  (1, 4, 2, 64, 64, 16)):
+                  (1, 4, 2, 64, 64, 16), (1, 16, 2, 128, 128, 128)):
         q, k, v = _qkv(shape, 7)
         want = ref.flash(*(ref.jnp.asarray(a).astype(jdt) for a in (q, k, v)),
                          causal=True)
@@ -111,9 +112,11 @@ def test_fully_masked_rows_are_zero_as_in_pallas(ref):
 def test_ragged_shapes_match_reference(ref):
     """Shapes no Pallas block divides (the reference's wrapper falls back
     to attention_ref for them; the port's kernel takes them directly):
-    prefill Sq = Sk = 37 and decode Sq = 1 over Sk = 300."""
+    prefill Sq = Sk = 37 and decode Sq = 1 over Sk = 300, at GQA group 3
+    and at group 8 with D = 128 (Qwen3-30B-A3B's decode)."""
     for i, shape in enumerate([(2, 6, 2, 37, 37, 64), (3, 12, 4, 1, 300, 64),
-                               (1, 4, 2, 5, 77, 128)]):
+                               (1, 4, 2, 5, 77, 128),
+                               (1, 16, 2, 1, 300, 128)]):
         q, k, v = _qkv(shape, 20 + i)
         for causal in (True, False):
             got = _port(q, k, v, causal)
@@ -249,11 +252,15 @@ def test_cuda_flash_matches_plain():
 
 @pytest.mark.cuda
 def test_cuda_split_kv_decode():
-    """The split-KV decode path ((H / Hkv) * Sq <= 16): one key, a part
-    tile, 1,000 keys (4 splits), Sk not a multiple of 64, one pair with
-    fewer tiles than SMs, 16 rows, causal rows (Sq = 2), a full cache at
-    max_seq (cache views), f32 and bf16; the same decode twice gives the
-    same bits."""
+    """The split-KV decode paths ((H / Hkv) * Sq <= 16; f32 on CUDA cores,
+    bf16 on tensor cores): one key, a part tile, 1,000 keys (4 splits), Sk
+    not a multiple of 64, one pair with fewer tiles than SMs, 16 rows,
+    causal rows (Sq = 2), a full cache at max_seq (cache views), f32 and
+    bf16; GQA group 8 over 1, 777 and 1,024 keys (the last Qwen3-30B-A3B's
+    decode through views of its [8, 4, 1024, 128] cache) and, at batch 1,
+    over 8,192 keys (4 pairs: the bf16 decode's most splits); bf16 at
+    every head dim for G * Sq of 1, 2, 3, 4, 5, 8 and 16; the same decode
+    twice gives the same bits."""
     _need_gpu()
     for dtype in (torch.float32, torch.bfloat16):
         for i, shape in enumerate([(8, 12, 4, 1, 1, 64),
@@ -263,7 +270,9 @@ def test_cuda_split_kv_decode():
                                    (1, 1, 1, 1, 100, 32),  # 1 pair, 2 tiles
                                    (2, 4, 2, 3, 200, 16),  # G * Sq = 6
                                    (2, 16, 1, 1, 300, 128),  # 16 rows
-                                   (1, 8, 1, 2, 500, 128)]):  # causal, Sq 2
+                                   (1, 8, 1, 2, 500, 128),  # causal, Sq 2
+                                   (8, 32, 4, 1, 1, 128),  # group 8
+                                   (2, 32, 4, 1, 777, 128)]):
             _check_cuda(shape, True, dtype, 80 + i)
         # a full cache: every one of max_seq positions, through views
         cache = torch.randn((2, 8, 4, 512, 64), device="cuda").to(dtype)
@@ -275,12 +284,38 @@ def test_cuda_split_kv_decode():
                 for _ in range(2)]
         torch.cuda.synchronize()
         assert torch.equal(runs[0], runs[1])
+    # bf16 at every head dim, G * Sq rows (G query heads a KV head, Sq
+    # positions) of 1, 2, 3, 4, 5, 8 and 16: Sq = 1 at G = 1, 2, 3, 4, 5,
+    # 8, 16; and G = 1 at Sq = 3, G = 4 at Sq = 2
+    for d in (16, 32, 64, 128):
+        for i, shape in enumerate([(2, 2, 2, 1, 300, d), (2, 4, 2, 1, 300, d),
+                                   (2, 3, 1, 1, 300, d), (2, 8, 2, 1, 300, d),
+                                   (2, 5, 1, 1, 300, d), (2, 16, 2, 1, 300, d),
+                                   (2, 16, 1, 1, 300, d),
+                                   (2, 4, 4, 3, 300, d), (2, 8, 2, 2, 300, d)
+                                   ]):
+            _check_cuda(shape, True, torch.bfloat16, 120 + i)
+    # Qwen3-30B-A3B's decode step: q [8, 32, 1, 128] over 1,024 keys of its
+    # cache, twice, with equal bits
+    cache = torch.randn((2, 8, 4, 1024, 128), device="cuda").to(torch.bfloat16)
+    got, _ = _check_cuda((8, 32, 4, 1, 1024, 128), True, torch.bfloat16, 95,
+                         kv=[cache[0], cache[1]])
+    q = torch.from_numpy(_qkv((8, 32, 4, 1, 1024, 128), 95)[0]).to(
+        torch.bfloat16).cuda()
+    again = flash_attention(q, cache[0], cache[1])
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    # batch 1 over a long cache: few pairs, many splits
+    _check_cuda((1, 32, 4, 1, 8192, 128), True, torch.bfloat16, 96)
 
 
 @pytest.mark.cuda
 def test_cuda_bf16_tensor_core_prefill():
     """The wgmma/TMA path (bf16, (H / Hkv) * Sq > 16): ragged Sq = 37 and
-    200, rows with no key (Sk < Sq), GQA and MQA, every head dim; a
+    200, rows with no key (Sk < Sq), GQA and MQA, every head dim; GQA
+    group 8 at D = 128 (Qwen3-30B-A3B's attention): Sq = Sk = 200 and
+    1,000 (64-row tiles straddling two heads), Sq 256 over Sk 100,
+    non-causal, and q as the model passes it (a transpose(1, 2) view); a
     misaligned stride raises instead of reaching TMA."""
     _need_gpu()
     for d in (16, 32, 64, 128):
@@ -294,6 +329,23 @@ def test_cuda_bf16_tensor_core_prefill():
             if causal and shape[3] > shape[4]:
                 assert not got[:, :, :shape[3] - shape[4]].any()
                 assert got[:, :, shape[3] - shape[4]:].abs().amax(-1).min() > 0
+    for i, (shape, causal) in enumerate([
+            ((1, 16, 2, 200, 200, 128), True),
+            ((1, 16, 2, 1000, 1000, 128), True),
+            ((1, 16, 2, 256, 100, 128), True),      # 156 rows with no key
+            ((1, 16, 2, 200, 150, 128), False)]):
+        got, _ = _check_cuda(shape, causal, torch.bfloat16, 110 + i)
+        if causal and shape[3] > shape[4]:
+            assert not got[:, :, :shape[3] - shape[4]].any()
+            assert got[:, :, shape[3] - shape[4]:].abs().amax(-1).min() > 0
+    # q as attention() passes it: a [B, H, S, D] view of [B, S, H, D]
+    qs, ks, vs = _qkv((2, 16, 2, 200, 200, 128), 115)
+    q = torch.from_numpy(qs.transpose(0, 2, 1, 3).copy()).to(
+        torch.bfloat16).cuda().transpose(1, 2)
+    kv = [torch.from_numpy(a).to(torch.bfloat16).cuda() for a in (ks, vs)]
+    torch.testing.assert_close(flash_attention(q, *kv).float(),
+                               attention_plain(q, *kv).float(), rtol=2e-2,
+                               atol=2e-2)
     q = torch.zeros((1, 4, 64, 64), device="cuda", dtype=torch.bfloat16)
     kv = torch.zeros((1, 2, 64, 68), device="cuda",
                      dtype=torch.bfloat16)[..., :64]

@@ -1,11 +1,12 @@
 """The flash-attention kernel's host-side choices, and its plain version at
 every head dim the kernel takes, on the CPU.
 
-The CUDA kernel picks one of three paths per call (split-KV decode when
-``(H // Hkv) * Sq <= 16``, else bf16 prefill on tensor cores or f32
-prefill on CUDA cores) and, for decode, a split count from the shape
-alone (``decode_splits``). The split count sizes the workspace the
-wrapper allocates, so it is pinned here case by case. The plain version
+The CUDA kernel picks its path per call (split-KV decode when
+``(H // Hkv) * Sq <= 16``, on CUDA cores in f32 and tensor cores in bf16,
+else bf16 prefill on tensor cores or f32 prefill on CUDA cores) and, for
+decode, a split count from the shape and type alone
+(``decode_splits``). The split count sizes the workspace the wrapper
+allocates, so it is pinned here case by case. The plain version
 (``attention_plain``, what a CPU tensor takes) is held against the
 reference's ``attention_ref`` at D = 16, 32, 64 and 128 on ragged and
 decode-like shapes (rtol 1e-4 / atol 1e-5, f32; rows with no key
@@ -25,24 +26,29 @@ KERNEL = importlib.import_module(
     "repro_torch.kernels.flash_attention.flash_attention")
 
 
-@pytest.mark.parametrize("b,hkv,sk,want", [
-    (8, 4, 1, 1),        # one key
-    (8, 4, 256, 1),      # fastwarc_lm's profiled decode: 4 tiles, unsplit
-    (8, 4, 257, 2),      # a fifth tile: 2 splits
-    (8, 4, 1000, 4),     # 32 pairs: 4 splits fill 128 of 132 SMs
-    (8, 8, 2000, 2),     # 64 pairs: one wave holds 2 splits
-    (1, 1, 100, 1),      # fewer than 4 tiles a split: unsplit
-    (1, 1, 9999, 40),    # 157 tiles, 4 a split
-    (1, 8, 5000, 16),    # one wave: 132 // 8
-    (300, 1, 500, 1),    # more pairs than SMs
+@pytest.mark.parametrize("b,hkv,sk,want,want_bf16", [
+    (8, 4, 1, 1, 1),        # one key
+    (8, 4, 256, 1, 1),      # fastwarc_lm's profiled decode: 4 tiles, unsplit
+    (8, 4, 257, 2, 1),      # a fifth tile: 2 splits in f32
+    # 32 pairs over 16 tiles (fastwarc_lm at 1,000 keys, Qwen3-30B-A3B at
+    # 1,024): 4 f32 splits fill 128 of 132 SMs; 32 blocks unsplit in bf16
+    (8, 4, 1024, 4, 1),
+    (8, 8, 2000, 2, 1),     # 64 pairs: one wave holds 2 splits
+    (1, 1, 100, 1, 1),      # fewer than 4 tiles a split: unsplit
+    (1, 1, 9999, 40, 40),   # 157 tiles, 4 a split: 40 blocks
+    (1, 8, 5000, 16, 7),    # one wave: 132 // 8; under 64 blocks in bf16
+    (300, 1, 500, 1, 1),    # more pairs than SMs
 ])
-def test_decode_splits(b, hkv, sk, want):
+def test_decode_splits(b, hkv, sk, want, want_bf16):
     """At most one wave of blocks (one an SM of the H100's 132), at least
-    4 of the 64-key tiles a split, at least one split."""
-    n = KERNEL.decode_splits(b, hkv, sk)
-    assert n == want
-    assert n == 1 or b * hkv * n <= 132
-    assert n <= -(-sk // 64)
+    4 of the 64-key tiles a split, at least one split; the bf16 decode
+    (tensor cores) to fewer than 64 blocks."""
+    for bf16, expect in ((False, want), (True, want_bf16)):
+        n = KERNEL.decode_splits(b, hkv, sk, bf16=bf16)
+        assert n == expect, bf16
+        assert n == 1 or b * hkv * n <= 132
+        assert n <= -(-sk // 64)
+    assert want_bf16 <= want
 
 
 @pytest.mark.parametrize("d", [16, 32, 128])

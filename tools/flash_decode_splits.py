@@ -32,11 +32,18 @@ fa = importlib.import_module(
     "repro_torch.kernels.flash_attention.flash_attention")
 
 # B, H, Hkv, Sk, D, dtype: q [B, H, 1, D] over the first Sk keys of a
-# [B, Hkv, 2048, D] cache
+# [B, Hkv, S, D] cache, S the larger of 2,048 and Sk (fastwarc_lm,
+# InternLM2-1.8B's shape, and Qwen3-30B-A3B's at GQA group 8: at batch 8
+# over 1,024 keys, and at batch 2 and 1 over long caches, 8 and 4 pairs;
+# bf16 takes the tensor-core decode)
 SHAPES = ((8, 12, 4, 256, 64, torch.float32),
           (8, 12, 4, 1000, 64, torch.float32),
-          (8, 16, 8, 2000, 128, torch.bfloat16))
-SPLITS = (1, 2, 4, 8, 9, 16, 32)
+          (8, 16, 8, 2000, 128, torch.bfloat16),
+          (8, 32, 4, 1024, 128, torch.bfloat16),
+          (2, 32, 4, 4096, 128, torch.bfloat16),
+          (1, 32, 4, 8192, 128, torch.bfloat16),
+          (1, 32, 4, 32768, 128, torch.bfloat16))
+SPLITS = (1, 2, 4, 7, 8, 9, 15, 16, 24, 32, 33)
 
 
 def time_ms(fn, flush: torch.Tensor, reps: int = 25) -> float:
@@ -65,17 +72,18 @@ def main() -> int:
     try:
         for b, h, hkv, sk, d, dt in SHAPES:
             q = torch.randn((b, h, 1, d), generator=gen, device="cuda").to(dt)
-            cache = torch.randn((2, b, hkv, 2048, d), generator=gen,
+            cache = torch.randn((2, b, hkv, max(2048, sk), d), generator=gen,
                                 device="cuda").to(dt)
             k, v = cache[0, :, :, :sk], cache[1, :, :, :sk]
             tiles = -(-sk // fa.KV_TILE)
             cells = []
             for n in (s for s in SPLITS if s <= tiles):
-                fa.decode_splits = lambda *_, n=n: n
+                fa.decode_splits = lambda *_, n=n, **__: n
                 cells.append(f"{n}: {time_ms(lambda: fa.flash_attention_bhsd(q, k, v), flush):.4f}")
             fa.decode_splits = rule
             print(f"q [{b}, {h}, 1, {d}] over {sk} keys, {str(dt)[6:]} "
-                  f"(rule: {rule(b, hkv, sk)} splits); ms by split count: "
+                  f"(rule: {rule(b, hkv, sk, bf16=dt == torch.bfloat16)} "
+                  f"splits); ms by split count: "
                   + ", ".join(cells), flush=True)
     finally:
         fa.decode_splits = rule
